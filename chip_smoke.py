@@ -1,0 +1,378 @@
+"""Drive the PyTorch/CUDA port's caption-serving path once on one GPU.
+
+    python3 chip_smoke.py        # from the repository root, one sm_90 card
+
+Phases, each printing its own lines; any failure raises and the script
+exits nonzero:
+
+1. card and software: ``nvidia-smi``'s name and power limit, torch and CUDA
+   versions, ``require_cuda``;
+2. build: the kernels compile from ``lrcn_tpu_torch/csrc/``;
+3. fused LSTM step kernel against its plain version at the decode step's
+   shapes (768 rows, X = H = 1000, both layers' weights) in bf16 and f32,
+   plus a ragged shape, with median CUDA-event times;
+4. top-k + log-sum-exp kernel against its plain version at (768, 8800)
+   k=3, (256, 8800) k=1 and a tie-heavy input: values and indices exact;
+5. service: a JAX-format checkpoint at the reference width (random weights
+   from a seed, an 8800-word synthetic vocab) and a 2048-row feature store
+   are written, loaded on the card and served, beam 3, max_words 20,
+   decode_batch 256, from several request threads; the kernels' launch
+   counts must match the searches run, and in f32 (TF32 off) the kernel
+   path's captions must agree with the plain path's;
+6. throughput: one 16x256 beam-3 decode in bf16.
+
+The line before the last is one JSON object describing each kernel; the
+last line is ``{"ok": true, "device": {...}}``.  The script imports
+nothing of JAX, and exits nonzero without printing a result when no CUDA
+device is present.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "build", "chip_smoke")
+
+# the reference width (bench.py's flagship geometry)
+HIDDEN, EMBED, CNN_DIM, VOCAB = (1000, 1000), 1000, 4096, 8800
+BEAM, MAX_WORDS, DECODE_BATCH = 3, 20, 256
+SEED = 0
+
+# kernel vs plain tolerances on the card
+#  lstm: the same operands (bf16-rounded or f32), f32 sums over X+H = 2000
+#        terms in another order
+LSTM_ATOL = 1e-4
+#  topk: vals and idx exact; lse sums 8800 exps in another order
+LSE_ATOL = 2e-5
+#  f32 service check: >= 99% equal captions; a differing one is a near-tie
+CAPTION_AGREEMENT, SCORE_ATOL = 0.99, 1e-3
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
+    """Median over ``reps`` samples of the CUDA-event time of ``inner``
+    back-to-back calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def random_tree(rng: np.random.Generator) -> dict[str, np.ndarray]:
+    """Decoder parameters as the JAX package initializes them (xavier
+    uniform, forget-gate bias 1), with '/'-joined checkpoint keys."""
+    h1, h2 = HIDDEN
+    f = -(-h2 // 2)
+
+    def xavier(shape):
+        scale = np.sqrt(6.0 / (shape[0] + shape[1]))
+        return rng.uniform(-scale, scale, shape).astype(np.float32)
+
+    def bias(h):
+        b = np.zeros(4 * h, np.float32)
+        b[:h] = 1.0
+        return b
+
+    return {"lstm1/w": xavier((EMBED + h1, 4 * h1)), "lstm1/b": bias(h1),
+            "lstm2/w": xavier((2 * f + h2, 4 * h2)), "lstm2/b": bias(h2),
+            "w_factor": xavier((h1, f)), "w_cnn": xavier((CNN_DIM, f)),
+            "embedding": xavier((VOCAB, EMBED)), "w_out": xavier((h2, VOCAB)),
+            "b_out": np.zeros(VOCAB, np.float32)}
+
+
+def write_checkpoint(path: str, tree: dict, cfg) -> None:
+    """The JAX package's checkpoint format, written with numpy."""
+    from lrcn_tpu_torch.core.vocab import Vocab
+
+    os.makedirs(path)
+    np.savez(os.path.join(path, "params.npz"), **tree)
+    Vocab([f"word{i}" for i in range(VOCAB - 3)]).save(
+        os.path.join(path, "vocab.json"))
+    meta = dict(dataclasses.asdict(cfg), step=0, epoch=0)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def phase_card() -> tuple[str, str]:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    from lrcn_tpu_torch import require_cuda
+    require_cuda("cuda")
+    name = torch.cuda.get_device_name(0)
+    print(f"[1 card] {name} | nvidia-smi: {smi} | torch {torch.__version__}"
+          f" | CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
+    return name, smi
+
+
+def phase_build() -> None:
+    from lrcn_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    path = build.build()
+    build.load()
+    seconds = time.perf_counter() - t0
+    usage = [line.strip() for line in
+             path.with_suffix(".log").read_text().splitlines()
+             if "registers" in line or "spill" in line]
+    print(f"[2 build] {len(build.sources())} sources from "
+          f"lrcn_tpu_torch/csrc -> {os.path.relpath(path, REPO)} in "
+          f"{seconds:.1f} s; ptxas: {' | '.join(sorted(set(usage)))}")
+
+
+def phase_lstm(tree, rng) -> dict:
+    from lrcn_tpu_torch.ops.kernels import (fused_lstm_step,
+                                            lstm_step_reference)
+
+    rows = DECODE_BATCH * BEAM
+    cases = [(f"layer{n} {dtype}".replace("torch.", ""),
+              tree[f"lstm{n}/w"], tree[f"lstm{n}/b"], rows, dtype)
+             for dtype in (torch.bfloat16, torch.float32) for n in (1, 2)]
+    ragged_w = (rng.standard_normal((37 + 70, 280)) * 0.1).astype(np.float32)
+    cases += [(f"ragged 100x37x70 {dtype}".replace("torch.", ""), ragged_w,
+               np.zeros(280, np.float32), 100, dtype)
+              for dtype in (torch.bfloat16, torch.float32)]
+    worst, times = 0.0, {}
+    for label, w_np, b_np, b_dim, dtype in cases:
+        h_dim = b_np.shape[0] // 4
+        x_dim = w_np.shape[0] - h_dim
+        w = torch.from_numpy(w_np).cuda().to(dtype).contiguous()
+        b = torch.from_numpy(b_np).cuda()
+        h, c, x = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).cuda() for s in ((b_dim, h_dim), (b_dim, h_dim),
+                                          (b_dim, x_dim)))
+        h_k, c_k = fused_lstm_step(w, b, h, c, x)
+        h_p, c_p = lstm_step_reference(w, b, h, c, x)
+        torch.cuda.synchronize()
+        err = max((h_k - h_p).abs().max().item(),
+                  (c_k - c_p).abs().max().item())
+        check(err <= LSTM_ATOL, f"lstm_step {label}: max |err| {err} > "
+                                f"{LSTM_ATOL}")
+        worst = max(worst, err)
+        ms = median_ms(lambda: fused_lstm_step(w, b, h, c, x))
+        plain = median_ms(lambda: lstm_step_reference(w, b, h, c, x))
+        times[label] = (ms, plain)
+        print(f"[3 lstm_step] {label}: rows={b_dim} X={x_dim} H={h_dim} "
+              f"max|err|={err:.3g} (tol {LSTM_ATOL}) kernel {ms:.4f} ms "
+              f"plain {plain:.4f} ms")
+    ms, plain = times["layer1 bfloat16"]
+    return {"name": "fused_lstm_step", "route": "cuda",
+            "source": "lrcn_tpu_torch/csrc/lstm_step.cu",
+            "replaces": "lrcn_tpu/ops/pallas/lstm_step.py:63",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+
+
+def phase_topk(rng) -> dict:
+    from lrcn_tpu_torch.ops.kernels import (topk_logsumexp,
+                                            topk_logsumexp_reference)
+
+    rows = DECODE_BATCH * BEAM
+    ties = rng.integers(-3, 3, (rows, VOCAB)).astype(np.float32)
+    ties[:, 7] = ties[:, 3]
+    ties[:, VOCAB - 1] = ties[:, 0]
+    cases = [("beam", rng.standard_normal((rows, VOCAB)) * 3, BEAM),
+             ("greedy", rng.standard_normal((DECODE_BATCH, VOCAB)) * 3, 1),
+             ("tie-heavy", ties, BEAM)]
+    worst, times = 0.0, {}
+    for label, x_np, k in cases:
+        x = torch.from_numpy(x_np.astype(np.float32)).cuda()
+        v_k, i_k, l_k = topk_logsumexp(x, k)
+        v_p, i_p, l_p = topk_logsumexp_reference(x, k)
+        torch.cuda.synchronize()
+        check(torch.equal(v_k, v_p) and torch.equal(i_k, i_p),
+              f"topk_logsumexp {label}: values/indices differ")
+        err = (l_k - l_p).abs().max().item()
+        check(err <= LSE_ATOL, f"topk_logsumexp {label}: lse |err| {err}")
+        worst = max(worst, err)
+        ms = median_ms(lambda: topk_logsumexp(x, k))
+        plain = median_ms(lambda: topk_logsumexp_reference(x, k))
+        times[label] = (ms, plain)
+        print(f"[4 topk_logsumexp] {label}: {tuple(x.shape)} k={k} vals/idx "
+              f"exact, lse max|err|={err:.3g} (tol {LSE_ATOL}) kernel "
+              f"{ms:.4f} ms plain {plain:.4f} ms")
+    ms, plain = times["beam"]
+    return {"name": "topk_logsumexp", "route": "cuda",
+            "source": "lrcn_tpu_torch/csrc/topk_lse.cu",
+            "replaces": "lrcn_tpu/ops/pallas/topk_lse.py:62",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+
+
+def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.data.feature_store import FeatureStore
+    from lrcn_tpu_torch.decode.beam import beam_search
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+    from lrcn_tpu_torch.ops.kernels import fused_lstm_step, topk_logsumexp
+    from lrcn_tpu_torch.serve import CaptionService
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    cfg = LRCNConfig(hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+                     vocab_size=VOCAB, compute_dtype="bfloat16")
+    write_checkpoint(os.path.join(WORK, "ckpt"), tree, cfg)
+    raw = np.abs(rng.standard_normal((2048, CNN_DIM))).astype(np.float32)
+    feats = raw / raw.sum(axis=1, keepdims=True)
+    store = FeatureStore(dim=CNN_DIM, normalized=True)
+    for i, row in enumerate(feats):
+        store.add(1000 + i, row)
+    store.save(os.path.join(WORK, "store"))
+    store = FeatureStore.load(os.path.join(WORK, "store"))
+
+    ck = load_checkpoint(os.path.join(WORK, "ckpt"), device="cuda")
+    svc = CaptionService(ck["cfg"], ck["decoder"], ck["vocab"],
+                         device="cuda", store=store, beam_width=BEAM,
+                         max_words=MAX_WORDS, decode_batch=DECODE_BATCH)
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm_s = time.perf_counter() - t0
+
+    ids = store.ids()
+    requests = [("ids", ids[:1]), ("ids", ids[1:18]), ("ids", ids[18:274]),
+                ("ids", ids[274:974]), ("features", list(raw[:5])),
+                ("features", list(raw[5:305]))]
+
+    def answer(req):
+        kind, items = req
+        if kind == "ids":
+            return svc.caption_ids(items)
+        return svc.caption_features(items)
+
+    # the main path: every count starts at 0 here (warmup's batches were
+    # recorded when their requests returned, so they are counted before)
+    batches_before = sum(s["batches"] for s in svc.stats().values())
+    fused_lstm_step.launches = 0
+    topk_logsumexp.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+        answers = list(pool.map(answer, requests))
+    serve_s = time.perf_counter() - t0
+    launches = {"fused_lstm_step": fused_lstm_step.launches,
+                "topk_logsumexp": topk_logsumexp.launches}
+    svc.close()     # joins the batcher threads: their stats are final
+    searches = (sum(s["batches"] for s in svc.stats().values())
+                - batches_before)
+
+    n_captions = sum(len(a) for a in answers)
+    for (kind, items), lines in zip(requests, answers):
+        check(len(lines) == len(items), f"{kind}: {len(lines)} answers "
+                                        f"for {len(items)} requests")
+        for line in lines:
+            check(isinstance(line, str) and line.endswith(" ."),
+                  f"malformed caption {line!r}")
+    steps = MAX_WORDS + 1
+    check(searches > 0 and launches["topk_logsumexp"] == steps * searches,
+          f"topk_logsumexp launched {launches['topk_logsumexp']} times in "
+          f"{searches} searches of {steps} steps")
+    check(launches["fused_lstm_step"] == 2 * steps * searches,
+          f"fused_lstm_step launched {launches['fused_lstm_step']} times in "
+          f"{searches} searches of {steps} steps")
+    print(f"[5 service] warmup {warm_s:.2f} s; {n_captions} captions for "
+          f"{len(requests)} concurrent requests in {serve_s:.3f} s, "
+          f"{searches} searches; launches {launches}; e.g. "
+          f"{answers[0][0][:60]!r}")
+
+    # kernel path against plain path in f32, TF32 off
+    dec32 = load_checkpoint(os.path.join(WORK, "ckpt"), device="cuda",
+                            compute_dtype=torch.float32)["decoder"]
+    batch = torch.from_numpy(feats[:DECODE_BATCH]).cuda()
+    tok_k, sc_k = beam_search(dec32, batch, beam_width=BEAM,
+                              max_words=MAX_WORDS)
+    tok_p, sc_p = beam_search(dec32, batch, beam_width=BEAM,
+                              max_words=MAX_WORDS, use_kernels=False)
+    cap_k = detokenize_batch(tok_k.cpu().numpy(), ck["vocab"])
+    cap_p = detokenize_batch(tok_p.cpu().numpy(), ck["vocab"])
+    differ = [i for i, (a, b) in enumerate(zip(cap_k, cap_p)) if a != b]
+    gaps = (sc_k - sc_p).abs().cpu().numpy()
+    agree = 1 - len(differ) / len(cap_k)
+    check(agree >= CAPTION_AGREEMENT,
+          f"f32 kernel vs plain captions agree on {agree:.4f} only")
+    check(all(gaps[i] <= SCORE_ATOL for i in differ),
+          f"differing captions' score gaps {gaps[differ].tolist()}")
+    distinct = len(set(cap_k))
+    print(f"[5 service f32] kernel vs plain path: {len(cap_k) - len(differ)}"
+          f"/{len(cap_k)} captions equal (need {CAPTION_AGREEMENT}); max "
+          f"score gap {gaps.max():.3g}; {distinct} distinct captions")
+    return launches, torch.from_numpy(feats)
+
+
+def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
+                     ) -> float:
+    from lrcn_tpu_torch.decode.beam import beam_search_grouped
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    decoder = load_checkpoint(decoder_path, device="cuda")["decoder"]
+    groups = 16
+    rows = feats[torch.arange(groups * DECODE_BATCH) % feats.shape[0]]
+    batch = rows.view(groups, DECODE_BATCH, -1).cuda().to(torch.bfloat16)
+    run = lambda: beam_search_grouped(decoder, batch, beam_width=BEAM,
+                                      max_words=MAX_WORDS)
+    run()
+    torch.cuda.synchronize()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tokens, _ = run()
+    tokens.cpu()
+    dt = time.perf_counter() - t0
+    rate = iters * groups * DECODE_BATCH / dt
+    print(f"[6 throughput] beam-{BEAM} max_words={MAX_WORDS} "
+          f"{groups}x{DECODE_BATCH} bf16: {rate:.1f} captions/s "
+          f"({dt / iters * 1e3:.1f} ms per decode) on {smi}")
+    return rate
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; it needs "
+                 "one CUDA card")
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+
+    name, smi = phase_card()
+    phase_build()
+    tree = random_tree(rng)
+    kernels = [phase_lstm(tree, rng), phase_topk(rng)]
+    launches, feats = phase_service(tree, rng)
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+        check(entry["launches"] > 0, f"{entry['name']} never launched on "
+                                     f"the main path")
+    phase_throughput(os.path.join(WORK, "ckpt"), feats, smi)
+    shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

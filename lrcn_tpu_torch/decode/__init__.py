@@ -1,0 +1,12 @@
+from lrcn_tpu_torch.decode.beam import (  # noqa: F401
+    beam_search,
+    beam_search_grouped,
+    greedy_search,
+    greedy_search_grouped,
+    rows_search,
+)
+from lrcn_tpu_torch.decode.writer import (  # noqa: F401
+    caption_to_line,
+    detokenize_batch,
+    generate_captions,
+)

@@ -1,0 +1,205 @@
+"""Batched beam search and greedy caption decoding on the device
+(counterpart of ``lrcn_tpu/decode/beam.py``).
+
+A batch of images decodes together: B·K hypotheses go through one
+``decode_step`` per word.  Each step launches the fused LSTM kernel twice
+(``models/lrcn.py``) and the fused top-k + log-sum-exp kernel once.  The
+loop has a fixed trip count of ``max_words + 1`` and never waits for the
+device: finished rows are masked, not skipped, so the host only enqueues
+work and the caller's fetch of the tokens is the one synchronisation.
+
+Reference semantics kept exactly, as in the JAX package:
+
+- scores accumulate in log space;
+- the first step expands only hypothesis 0 (lrcn.jl:662-664): the other
+  beams start at ``NEG_INF = -1e30``;
+- candidate selection is two top-k stages: per hypothesis over the
+  vocabulary (the kernel; ``vals - lse`` is the top-k of ``log_softmax``),
+  then over the K·K shortlist with the lower index first among ties
+  (``lax.top_k``'s rule, here a stable descending sort);
+- hypotheses that emit EOS keep extending; a row is done when its best
+  hypothesis ends in EOS (lrcn.jl:670), after which it records identity
+  parents, EOS filler and a frozen score;
+- the winning path is read back through the parent pointers.
+
+Rows are independent, so the grouped variants decode all G·B rows of a
+(G, B, D) group in one search.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lrcn_tpu_torch.core.vocab import BOS_ID, EOS_ID
+from lrcn_tpu_torch.models import lrcn
+from lrcn_tpu_torch.models.lrcn import LRCNDecoder, LSTMState
+from lrcn_tpu_torch.ops.kernels import (topk_logsumexp,
+                                        topk_logsumexp_reference)
+
+NEG_INF = -1e30
+
+
+def _top_k_stable(x: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, lower index first among equal values."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _gather_beams(x: torch.Tensor, parent: torch.Tensor) -> torch.Tensor:
+    """Reorder the beam axis: x (B, K, D) indexed by parent (B, K)."""
+    return torch.gather(x, 1, parent[:, :, None].expand(-1, -1, x.shape[-1]))
+
+
+@torch.inference_mode()
+def beam_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                beam_width: int = 3, max_words: int = 30,
+                use_kernels: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam search over a batch of fc7 rows.
+
+    Args:
+      decoder: the decoder, on the device of ``feats``.
+      feats: (B, D) fc7 features (already L1-normalized, lrcn.jl:597), in
+        float32 or the compute dtype.
+      beam_width: K (reference ``--beam_width``).
+      max_words: cap on generated tokens (reference ``--generate``).
+      use_kernels: False runs the kernels' plain versions (see
+        ``models.lrcn.decode_step``).
+
+    Returns:
+      tokens: (B, max_words+2) int64, BOS in column 0, then up to
+        max_words+1 generated tokens with EOS filler after the first EOS.
+      scores: (B,) float32 cumulative log-probability of the best
+        hypothesis.
+    """
+    b_dim, k = feats.shape[0], beam_width
+    device = feats.device
+    topk = topk_logsumexp if use_kernels else topk_logsumexp_reference
+
+    cnn_proj = lrcn.cnn_projection(decoder, feats)                # (B, F)
+    cnn_flat = cnn_proj.repeat_interleave(k, dim=0)              # (B*K, F)
+
+    # all hypotheses are identical at step 0: only beam 0 may expand
+    scores = torch.full((b_dim, k), NEG_INF, dtype=torch.float32,
+                        device=device)
+    scores[:, 0] = 0.0
+    last = torch.full((b_dim, k), BOS_ID, dtype=torch.int64, device=device)
+    state = lrcn.init_state(decoder, b_dim * k, device)
+    done = torch.zeros((b_dim,), dtype=torch.bool, device=device)
+    identity = torch.arange(k, device=device).expand(b_dim, k)
+    eos = torch.full((b_dim, k), EOS_ID, dtype=torch.int64, device=device)
+
+    parents, words = [], []
+    for _ in range(max_words + 1):
+        state, logits = lrcn.decode_step(decoder, state, last.reshape(-1),
+                                         cnn_flat, use_kernels)
+        vals, step_words, lse = topk(logits, k)                  # (B*K, K)
+        step_scores = vals - lse[:, None]
+        cand = scores[:, :, None] + step_scores.view(b_dim, k, k)
+        top_scores, sel = _top_k_stable(cand.view(b_dim, k * k), k)
+        parent = torch.div(sel, k, rounding_mode="floor")
+        word = torch.gather(step_words.view(b_dim, k * k).long(), 1, sel)
+
+        state = LSTMState(*(
+            _gather_beams(s.view(b_dim, k, -1), parent).view(b_dim * k, -1)
+            for s in state))
+
+        # finished rows: identity parents, EOS filler, frozen scores; the
+        # state and `last` keep evolving, and all they influence is masked
+        keep = done[:, None]
+        parents.append(torch.where(keep, identity, parent))
+        words.append(torch.where(keep, eos, word))
+        scores = torch.where(keep, scores, top_scores)
+        # stop rule: the CURRENT BEST hypothesis ends with EOS (lrcn.jl:670)
+        done = done | (word[:, 0] == EOS_ID)
+        last = word
+
+    # parent-pointer backtrace from the best final hypothesis
+    beam = torch.zeros((b_dim, 1), dtype=torch.int64, device=device)
+    path = [None] * len(words)
+    for t in reversed(range(len(words))):
+        path[t] = torch.gather(words[t], 1, beam)
+        beam = torch.gather(parents[t], 1, beam)
+    bos = torch.full((b_dim, 1), BOS_ID, dtype=torch.int64, device=device)
+    return torch.cat([bos] + path, dim=1), scores[:, 0]
+
+
+@torch.inference_mode()
+def greedy_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                  max_words: int = 30) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched greedy (argmax) decoding: beam search with K=1 semantics,
+    through the top-k kernel at k=1.  Same return contract as
+    :func:`beam_search`."""
+    b_dim = feats.shape[0]
+    device = feats.device
+
+    cnn_proj = lrcn.cnn_projection(decoder, feats)
+    state = lrcn.init_state(decoder, b_dim, device)
+    last = torch.full((b_dim,), BOS_ID, dtype=torch.int64, device=device)
+    scores = torch.zeros((b_dim,), dtype=torch.float32, device=device)
+    done = torch.zeros((b_dim,), dtype=torch.bool, device=device)
+    eos = torch.full((b_dim,), EOS_ID, dtype=torch.int64, device=device)
+
+    words = []
+    for _ in range(max_words + 1):
+        state, logits = lrcn.decode_step(decoder, state, last, cnn_proj)
+        vals, idx, lse = topk_logsumexp(logits, 1)
+        word = idx[:, 0].long()
+        # finished rows emit EOS filler and stop accumulating score
+        words.append(torch.where(done, eos, word))
+        scores = torch.where(done, scores, scores + (vals[:, 0] - lse))
+        done = done | (word == EOS_ID)
+        last = word
+    bos = torch.full((b_dim,), BOS_ID, dtype=torch.int64, device=device)
+    return torch.stack([bos] + words, dim=1), scores
+
+
+def search(decoder: LRCNDecoder, feats: torch.Tensor, *, beam_width: int,
+           max_words: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy for ``beam_width == 1``, else beam search."""
+    if beam_width == 1:
+        return greedy_search(decoder, feats, max_words=max_words)
+    return beam_search(decoder, feats, beam_width=beam_width,
+                       max_words=max_words)
+
+
+def _grouped(fn, decoder, feats: torch.Tensor, **kwargs):
+    g_dim, b_dim = feats.shape[:2]
+    tokens, scores = fn(decoder, feats.reshape(g_dim * b_dim, -1), **kwargs)
+    return tokens.view(g_dim, b_dim, -1), scores.view(g_dim, b_dim)
+
+
+def beam_search_grouped(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                        beam_width: int = 3, max_words: int = 30
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(G, B, D) -> ((G, B, max_words+2) tokens, (G, B) scores): the G
+    batches decode as one search of G·B rows (counterpart of
+    ``beam_search_scan``)."""
+    return _grouped(beam_search, decoder, feats, beam_width=beam_width,
+                    max_words=max_words)
+
+
+def greedy_search_grouped(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                          max_words: int = 30
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The greedy analogue of :func:`beam_search_grouped`."""
+    return _grouped(greedy_search, decoder, feats, max_words=max_words)
+
+
+def rows_search(decoder: LRCNDecoder, table: torch.Tensor,
+                idx: torch.Tensor, *, beam_width: int, max_words: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather rows of a device-resident feature table, then search.
+
+    ``idx`` is (B,) or (G, B) row indices on the table's device; the
+    result has the shape of ``idx`` plus the token axis, so a (G, B) group
+    is one search (the counterpart of both ``rows_search`` and
+    ``rows_search_scan``).  The gather is exact, so this equals searching
+    the gathered rows.
+    """
+    feats = table[idx.reshape(-1)]
+    tokens, scores = search(decoder, feats, beam_width=beam_width,
+                            max_words=max_words)
+    return tokens.view(*idx.shape, -1), scores.view(idx.shape)
+

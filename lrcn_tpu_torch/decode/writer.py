@@ -1,0 +1,121 @@
+"""Caption generation driver (counterpart of ``lrcn_tpu/decode/writer.py``).
+
+``caption_to_line`` and ``detokenize_batch`` are copies of the JAX
+package's: they are numpy-only, but their module imports JAX.  Each caption
+line is the generated words joined by spaces with a trailing `` .``
+(lrcn.jl:634-640).
+
+``generate_captions`` decodes beam (or greedy, ``beam_width=1``) captions
+in groups of ``scan_depth`` batches of ``batch_size`` rows, each group one
+search on the device.  Sampling (``best_of_n_search``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from lrcn_tpu_torch import as_device
+from lrcn_tpu_torch.core.vocab import EOS_ID, Vocab
+from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
+from lrcn_tpu_torch.decode.beam import rows_search, search
+from lrcn_tpu_torch.models.lrcn import LRCNDecoder
+
+MAX_INFLIGHT = 4   # searches queued ahead of the oldest fetch
+
+
+def caption_to_line(token_row: np.ndarray, vocab: Vocab) -> str:
+    """Token ids (BOS at [0]) -> the reference's caption line format.
+
+    Reference: print each word followed by a space, stop at EOS, then
+    print "." (lrcn.jl:634-640) — i.e. ``"w1 w2 ... wn ."``.
+    """
+    words = []
+    for t in token_row[1:]:
+        if int(t) == EOS_ID:
+            break
+        words.append(vocab.word(int(t)))
+    return " ".join(words + ["."])
+
+
+def detokenize_batch(tokens: np.ndarray, vocab: Vocab) -> list[str]:
+    """Vectorized ``caption_to_line`` over (N, T) token rows: a numpy EOS
+    scan and an object-array gather leave one join per caption in
+    Python."""
+    toks = np.asarray(tokens)[:, 1:]            # drop BOS
+    if toks.size == 0:
+        return ["."] * len(toks)
+    eos = toks == EOS_ID
+    has = eos.any(axis=1)
+    ends = np.where(has, eos.argmax(axis=1), toks.shape[1])
+    words = vocab.words_array()[toks]           # (N, T-1) object gather
+    return [" ".join(list(words[i, :e]) + ["."])
+            for i, e in enumerate(ends)]
+
+
+def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
+                      store: FeatureStore, image_ids: Sequence[int], *,
+                      device, beam_width: int = 3, max_words: int = 30,
+                      batch_size: int = 64, scan_depth: int = 4,
+                      resident_store: bool | None = None) -> list[str]:
+    """Decode captions for ``image_ids``; one line per id, in order.
+
+    Features are L1-normalized unless the store says they already are
+    (the reference's ``featsn`` files are pre-normalized; its live path
+    normalizes at lrcn.jl:597).
+
+    ``scan_depth`` batches decode as one search; up to ``MAX_INFLIGHT``
+    searches are queued on the device before the oldest one's tokens are
+    fetched, so the host enqueues the next group while the device works.
+
+    ``resident_store``: upload the whole feature table to ``device`` once
+    and gather rows there by index; by default when the run decodes at
+    least as many rows as the table holds.
+    """
+    device = as_device(device)
+    if decoder.device != device:
+        raise ValueError(f"decoder is on {decoder.device}, not {device}")
+    normalize = not store.normalized
+    if resident_store is None:
+        resident_store = 0 < len(store) <= len(image_ids)
+    feat_dtype = decoder.compute_dtype   # the search casts to it first
+
+    table = None
+    if resident_store and len(store):
+        host = np.asarray(store.table(), np.float32)
+        if normalize:
+            host = l1_normalize(host)
+        table = torch.from_numpy(host).to(feat_dtype).to(device)
+
+    lines: list[str] = []
+    pending: list[tuple[torch.Tensor, int]] = []   # (device tokens, n_real)
+
+    def drain_one():
+        tokens, n_real = pending.pop(0)
+        lines.extend(detokenize_batch(tokens.cpu().numpy()[:n_real], vocab))
+
+    rows_per_group = batch_size * max(1, scan_depth)
+    for start in range(0, len(image_ids), rows_per_group):
+        chunk = list(image_ids[start:start + rows_per_group])
+        n_real = len(chunk)
+        # pad to the full group with the last id: rows are independent
+        chunk += [chunk[-1]] * (rows_per_group - n_real)
+        if table is not None:
+            idx = torch.from_numpy(store.rows(chunk).astype(np.int64))
+            tokens, _ = rows_search(decoder, table, idx.to(device),
+                                    beam_width=beam_width,
+                                    max_words=max_words)
+        else:
+            feats = store.gather(chunk).astype(np.float32)
+            if normalize:
+                feats = l1_normalize(feats)
+            tokens, _ = search(decoder, torch.from_numpy(feats).to(device),
+                               beam_width=beam_width, max_words=max_words)
+        pending.append((tokens, n_real))
+        if len(pending) > MAX_INFLIGHT:
+            drain_one()
+    while pending:
+        drain_one()
+    return lines

@@ -1,0 +1,5 @@
+from lrcn_tpu_torch.ops.lstm import (  # noqa: F401
+    lstm_cell_update,
+    lstm_step,
+    matmul,
+)

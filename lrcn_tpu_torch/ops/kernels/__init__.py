@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for sm_90a, one wrapper module each, plus the
+``nvcc`` build (``build.py``).  Every wrapper keeps its plain PyTorch
+version beside it and counts its launches in ``<wrapper>.launches``."""
+
+from lrcn_tpu_torch.ops.kernels.lstm_step import (  # noqa: F401
+    fused_lstm_step,
+    lstm_step_reference,
+)
+from lrcn_tpu_torch.ops.kernels.topk_lse import (  # noqa: F401
+    topk_logsumexp,
+    topk_logsumexp_reference,
+)

@@ -1,0 +1,106 @@
+"""Build the package's CUDA kernels with ``nvcc`` and bind them with ctypes.
+
+Every ``csrc/*.cu`` file compiles, at first use, into one shared library
+with a plain C interface under ``build/lrcn_tpu_torch/`` at the root of
+the checkout.  The library's name carries a hash of the sources and the
+flags, so an edited kernel rebuilds and an unchanged one loads from the
+cache.  ``nvcc``'s report (``-Xptxas -v``: registers, shared memory,
+spills) is kept beside the library as ``<name>.log``.
+
+Importing this module needs neither ``nvcc`` nor a GPU: the CPU tests
+import every module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "lrcn_tpu_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argtypes; every entry point returns cudaGetLastError()
+SIGNATURES = {
+    # x, h, c, w, b, h_out, c_out, B, X, H, bf16, stream
+    "lrcn_lstm_step": [_P] * 7 + [_I] * 4 + [_P],
+    # logits, vals, idx, lse, R, V, k, stream
+    "lrcn_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"liblrcn_tpu_torch_{digest.hexdigest()[:16]}.so"
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def build() -> Path:
+    """Compile the kernels unless the cached library for these sources
+    exists; return its path.  Raises with nvcc's output on failure."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    path.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)   # atomic: concurrent builders never see half a file
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first use, with argtypes set."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")

@@ -1,0 +1,91 @@
+"""Fused LSTM step: CUDA kernel wrapper and its plain PyTorch version.
+
+Counterpart of ``lrcn_tpu/ops/pallas/lstm_step.py:fused_lstm_step``; the
+kernel is ``csrc/lstm_step.cu``.  One launch computes the four gate
+matmuls of ``[x, h] @ W + b`` and the cell update, in f32 accumulation,
+without writing the (B, 4H) gate pre-activations to device memory.
+
+The compute dtype is the dtype of ``w``: the decoder caches its LSTM
+weights in the compute dtype once, at load (the JAX kernel casts them on
+every call).  bf16 is the serving path; f32 is for parity runs.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from lrcn_tpu_torch import require_cuda
+from lrcn_tpu_torch.ops import lstm
+from lrcn_tpu_torch.ops.kernels import build
+
+_count_lock = threading.Lock()
+
+
+def lstm_step_reference(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
+                        c: torch.Tensor, x: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: ``ops.lstm.lstm_step`` in the
+    dtype of ``w``."""
+    return lstm.lstm_step(w, b, h, c, x, compute_dtype=w.dtype)
+
+
+def _check(w, b, h, c, x) -> None:
+    if x.dim() != 2 or h.dim() != 2 or c.shape != h.shape:
+        raise ValueError(f"x {tuple(x.shape)}, h {tuple(h.shape)}, "
+                         f"c {tuple(c.shape)}: want (B, X), (B, H), (B, H)")
+    (b_dim, x_dim), h_dim = x.shape, h.shape[1]
+    if h.shape[0] != b_dim:
+        raise ValueError(f"x has {b_dim} rows, h has {h.shape[0]}")
+    if w.shape != (x_dim + h_dim, 4 * h_dim):
+        raise ValueError(f"w {tuple(w.shape)} != "
+                         f"({x_dim + h_dim}, {4 * h_dim})")
+    if b.shape != (4 * h_dim,):
+        raise ValueError(f"b {tuple(b.shape)} != ({4 * h_dim},)")
+    if w.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w must be bfloat16 or float32, got {w.dtype}")
+    for name, t in (("x", x), ("h", h), ("c", c), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("w", w), ("b", b), ("h", h), ("c", c), ("x", x)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fused_lstm_step(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
+                    c: torch.Tensor, x: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step as one kernel launch; returns (h', c') in float32.
+
+    Args:
+      w: (X+H, 4H) packed weights, gate order [f, i, o, g], bf16 or f32
+        (the compute dtype).
+      b: (4H,) f32 bias.  h, c: (B, H) f32 state.  x: (B, X) f32 input.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
+    _check(w, b, h, c, x)
+    if x.device.type == "cpu":
+        return lstm_step_reference(w, b, h, c, x)
+    device = require_cuda(x.device)
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.lrcn_lstm_step(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
+            b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+            x.shape[0], x.shape[1], h.shape[1],
+            int(w.dtype == torch.bfloat16), stream)
+    build.check(status, "lrcn_lstm_step")
+    with _count_lock:
+        fused_lstm_step.launches += 1
+    return h_out, c_out
+
+
+fused_lstm_step.launches = 0

@@ -1,0 +1,188 @@
+"""Online caption service on one CUDA device (counterpart of the decode
+stage of ``lrcn_tpu/serve/service.py``).
+
+Requests for captions, by image id or by raw fc7 rows, queue behind a
+``DynamicBatcher`` each.  Its dispatcher thread pads what it drained to a
+whole number of ``decode_batch``-row batches, up to ``MAX_DECODE_GROUPS``
+of them in one search (burst absorption), and enqueues the search on the
+device without waiting; the collector thread fetches the tokens and
+detokenizes them.  Requests by id ship int64 row indices into a feature
+table that lives on the device, uploaded once at construction.
+
+Not ported yet: the encoder stage (``caption_images``), the device mesh
+and the HTTP front ends.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from lrcn_tpu_torch import as_device
+from lrcn_tpu_torch.config import LRCNConfig
+from lrcn_tpu_torch.core.vocab import Vocab
+from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
+from lrcn_tpu_torch.decode.beam import rows_search, search
+from lrcn_tpu_torch.decode.writer import detokenize_batch
+from lrcn_tpu_torch.models.lrcn import LRCNDecoder
+from lrcn_tpu_torch.serve.batcher import DynamicBatcher
+
+
+class CaptionService:
+    """Caption requests against a loaded decoder, batched dynamically.
+
+    ``caption_ids`` looks features up in the store; ``caption_features``
+    takes fc7 rows.  Both are thread-safe: any number of request threads
+    may call them, and all device work funnels through the batchers'
+    dispatcher threads.
+    """
+
+    MAX_DECODE_GROUPS = 4   # batches per burst search
+
+    def __init__(self, cfg: LRCNConfig, decoder: LRCNDecoder, vocab: Vocab,
+                 *, device, store: FeatureStore | None = None,
+                 beam_width: int = 3, max_words: int = 30,
+                 decode_batch: int = 64, max_wait_ms: float = 5.0,
+                 request_timeout_s: float = 60.0):
+        self.device = as_device(device)
+        if decoder.device != self.device:
+            raise ValueError(f"decoder is on {decoder.device}, service "
+                             f"device is {self.device}")
+        self.cfg = cfg
+        self.decoder = decoder
+        self.vocab = vocab
+        self.store = store
+        self.beam_width = beam_width
+        self.max_words = max_words
+        self.decode_batch = decode_batch
+        self.request_timeout_s = request_timeout_s
+        max_batch = decode_batch * self.MAX_DECODE_GROUPS
+        self._decode = DynamicBatcher(
+            self._decode_feats_grouped, finalize=self._decode_finalize,
+            max_batch=max_batch, max_wait_ms=max_wait_ms, name="decode")
+        # Device-resident feature table: requests by id ship row indices
+        # instead of fc7 rows.  In the compute dtype: the search casts its
+        # features to it before first use, so this is bit-identical and
+        # halves the table in bf16.
+        self._table = self._rows_batcher = None
+        if store is not None and len(store):
+            table = np.asarray(store.table(), np.float32)
+            if not store.normalized:
+                table = l1_normalize(table)
+            self._table = torch.from_numpy(table).to(
+                decoder.compute_dtype).to(self.device)
+            self._rows_batcher = DynamicBatcher(
+                self._decode_rows_grouped, finalize=self._decode_finalize,
+                max_batch=max_batch, max_wait_ms=max_wait_ms,
+                name="decode_ids")
+
+    # --- stage fns (dispatcher threads) ---
+
+    def _padded_rows(self, n: int) -> int:
+        groups = max(1, -(-n // self.decode_batch))
+        if groups > self.MAX_DECODE_GROUPS:
+            raise ValueError(f"{n} rows exceed {self.MAX_DECODE_GROUPS} "
+                             f"batches of {self.decode_batch}")
+        return groups * self.decode_batch
+
+    def _decode_feats_grouped(self, rows: Sequence[np.ndarray]):
+        """ENQUEUE one search over already-normalized fc7 rows, padded to
+        whole batches; returns (n, device tokens) without waiting."""
+        n = len(rows)
+        batch = np.zeros((self._padded_rows(n), self.cfg.cnn_feature_dim),
+                         np.float32)
+        batch[:n] = np.asarray(rows, np.float32)
+        tokens, _ = search(self.decoder,
+                           torch.from_numpy(batch).to(self.device),
+                           beam_width=self.beam_width,
+                           max_words=self.max_words)
+        return n, tokens
+
+    def _decode_rows_grouped(self, rows: Sequence[int]):
+        """ENQUEUE one search over rows of the device-resident table."""
+        n = len(rows)
+        idx = np.zeros((self._padded_rows(n),), np.int64)
+        idx[:n] = rows
+        tokens, _ = rows_search(self.decoder, self._table,
+                                torch.from_numpy(idx).to(self.device),
+                                beam_width=self.beam_width,
+                                max_words=self.max_words)
+        return n, tokens
+
+    def _decode_finalize(self, raw) -> list[str]:
+        n, tokens = raw
+        tokens = tokens[:n].cpu().numpy()   # waits for the device here
+        return detokenize_batch(tokens, self.vocab)
+
+    # --- request side ---
+
+    def caption_features(self, feats: Sequence[np.ndarray]) -> list[str]:
+        """Caption raw fc7 rows.
+
+        Rows are L1-normalized here, exactly like the reference's live
+        path (``input/sum(input)``, lrcn.jl:597).  Pre-normalized input is
+        a no-op (fc7 is post-ReLU, so a normalized row re-normalizes to
+        itself).
+        """
+        rows = [np.asarray(f, np.float32).reshape(-1) for f in feats]
+        for row in rows:
+            if row.shape[0] != self.cfg.cnn_feature_dim:
+                raise ValueError(
+                    f"feature row has {row.shape[0]} dims, model expects "
+                    f"{self.cfg.cnn_feature_dim}")
+        if not rows:
+            return []
+        return self._submit_decode(list(l1_normalize(np.stack(rows))))
+
+    def _submit_decode(self, rows: Sequence[np.ndarray]) -> list[str]:
+        """Decode already-normalized fc7 rows through the batcher."""
+        return self._await_all([self._decode.submit(r) for r in rows])
+
+    def caption_ids(self, image_ids: Sequence[int]) -> list[str]:
+        if self._rows_batcher is None:
+            raise RuntimeError("service has no feature store")
+        rows = self.store.rows(image_ids)   # KeyError on unknown ids
+        return self._await_all(
+            [self._rows_batcher.submit(int(r)) for r in rows])
+
+    def _await_all(self, futs: list, timeout_s: float | None = None
+                   ) -> list:
+        """Wait for every future; on timeout CANCEL the not-yet-batched
+        remainder so the device never runs work whose client is gone."""
+        try:
+            return [f.result(timeout=timeout_s or self.request_timeout_s)
+                    for f in futs]
+        except Exception:
+            for f in futs:
+                f.cancel()
+            raise
+
+    # --- ops ---
+
+    def warmup(self, timeout_s: float = 600.0) -> None:
+        """Run every serving path once before taking traffic: this builds
+        the kernels and warms cuBLAS and the caching allocator at the
+        largest burst shape.  ``timeout_s`` covers the first build."""
+        dim = self.cfg.cnn_feature_dim
+        full = self.decode_batch * self.MAX_DECODE_GROUPS
+        self._await_all([self._decode.submit(np.zeros(dim, np.float32))],
+                        timeout_s=timeout_s)
+        self._decode_finalize(self._decode_feats_grouped(
+            [np.zeros(dim, np.float32)] * full))
+        if self._rows_batcher is not None:
+            self._await_all([self._rows_batcher.submit(0)],
+                            timeout_s=timeout_s)
+            self._decode_finalize(self._decode_rows_grouped([0] * full))
+
+    def stats(self) -> dict:
+        out = {"decode": self._decode.stats.snapshot()}
+        if self._rows_batcher is not None:
+            out["decode_ids"] = self._rows_batcher.stats.snapshot()
+        return out
+
+    def close(self) -> None:
+        self._decode.close()
+        if self._rows_batcher is not None:
+            self._rows_batcher.close()

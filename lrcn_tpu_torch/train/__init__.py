@@ -1,0 +1,1 @@
+from lrcn_tpu_torch.train.checkpoint import load_checkpoint  # noqa: F401

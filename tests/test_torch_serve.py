@@ -1,0 +1,164 @@
+"""The port's serving slice against the JAX package, on the CPU: checkpoint
+and feature-store files cross between the packages, and the port's
+``CaptionService`` and ``generate_captions`` give the JAX package's
+captions in f32."""
+
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lrcn_tpu.config import LRCNConfig
+from lrcn_tpu.core.vocab import Vocab
+from lrcn_tpu.data.feature_store import FeatureStore
+from lrcn_tpu.decode.writer import generate_captions as jax_generate
+from lrcn_tpu.models import lrcn as jax_lrcn
+from lrcn_tpu.serve.service import CaptionService as JaxCaptionService
+from lrcn_tpu.train.checkpoint import save_checkpoint
+from lrcn_tpu_torch.data.feature_store import FeatureStore as TorchStore
+from lrcn_tpu_torch.decode.writer import generate_captions
+from lrcn_tpu_torch.serve import CaptionService
+from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    """A JAX-written f32 checkpoint and feature store (the tiny serving
+    config of tests/test_serve.py)."""
+    cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
+                     cnn_feature_dim=8, compute_dtype="float32")
+    vocab = Vocab([f"w{i}" for i in range(cfg.vocab_size - 3)])
+    params = jax_lrcn.init_params(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(5)
+    feats = {100 + i: np.abs(rng.standard_normal(cfg.cnn_feature_dim)
+                             ).astype(np.float32) for i in range(40)}
+    store = FeatureStore.from_dict(feats, normalized=False)
+    root = tmp_path_factory.mktemp("jax_written")
+    save_checkpoint(str(root / "ckpt"), params, vocab, cfg, step=7, epoch=2)
+    store.save(str(root / "store"))
+    return cfg, vocab, params, store, root
+
+
+def test_jax_checkpoint_loads_in_port(tiny):
+    cfg, vocab, params, _, root = tiny
+    ck = load_checkpoint(str(root / "ckpt"), CPU)
+    for field in ("hidden", "embed", "cnn_feature_dim", "vocab_size",
+                  "compute_dtype", "beam_width"):
+        assert getattr(ck["cfg"], field) == getattr(cfg, field), field
+    assert ck["vocab"].words == vocab.words
+    assert (ck["step"], ck["epoch"]) == (7, 2)
+    decoder = ck["decoder"]
+    assert decoder.compute_dtype == torch.float32   # from the config
+    np.testing.assert_array_equal(decoder.lstm1_w.numpy(),
+                                  np.asarray(params["lstm1"]["w"]))
+    np.testing.assert_array_equal(decoder.w_out.numpy(),
+                                  np.asarray(params["w_out"]))
+    bf16 = load_checkpoint(str(root / "ckpt"), CPU, torch.bfloat16)
+    assert bf16["decoder"].lstm2_w.dtype == torch.bfloat16
+    assert bf16["decoder"].embedding.dtype == torch.float32
+
+
+def test_incomplete_checkpoint_is_refused(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        load_checkpoint(str(tmp_path), CPU)
+
+
+def test_feature_store_crosses_packages(tiny, tmp_path):
+    _, _, _, store, root = tiny
+    ported = TorchStore.load(str(root / "store"))
+    assert ported.ids() == store.ids() and not ported.normalized
+    np.testing.assert_array_equal(ported.table(), store.table())
+    ported.save(str(tmp_path / "back"))
+    back = FeatureStore.load(str(tmp_path / "back"))
+    np.testing.assert_array_equal(back.gather(store.ids()),
+                                  store.gather(store.ids()))
+
+
+def _services(tiny, **kw):
+    cfg, vocab, params, store, root = tiny
+    ck = load_checkpoint(str(root / "ckpt"), CPU)
+    ported = CaptionService(cfg, ck["decoder"], ck["vocab"], device=CPU,
+                            store=TorchStore.load(str(root / "store")),
+                            **kw)
+    ref = JaxCaptionService(cfg, params, vocab, store=store,
+                            compute_dtype=jnp.float32, **kw)
+    return ported, ref
+
+
+@pytest.mark.parametrize("n_ids", [1, 5, 17])
+def test_caption_ids_match_jax_service(tiny, n_ids):
+    """Single requests and bursts above decode_batch (grouped searches)."""
+    ported, ref = _services(tiny, beam_width=2, max_words=8, decode_batch=4)
+    try:
+        ids = tiny[3].ids()[:n_ids]
+        got = ported.caption_ids(ids)
+        assert got == ref.caption_ids(ids)
+        assert all(line.endswith(" .") or line == "." for line in got)
+    finally:
+        ported.close()
+        ref.close()
+
+
+def test_caption_features_match_jax_service(tiny):
+    ported, ref = _services(tiny, beam_width=3, max_words=8, decode_batch=4)
+    try:
+        rows = list(tiny[3].table()[:11] * 3.0)   # raw, unnormalized
+        assert ported.caption_features(rows) == ref.caption_features(rows)
+        with pytest.raises(ValueError):
+            ported.caption_features([np.ones(5, np.float32)])
+    finally:
+        ported.close()
+        ref.close()
+
+
+def test_concurrent_requests_and_stats(tiny):
+    ported, ref = _services(tiny, beam_width=2, max_words=6, decode_batch=4,
+                            max_wait_ms=20.0)
+    try:
+        ported.warmup()
+        ids = tiny[3].ids()
+        want = dict(zip(ids, ref.caption_ids(ids)))
+        results, errors = {}, []
+
+        def client(chunk):
+            try:
+                for i, line in zip(chunk, ported.caption_ids(chunk)):
+                    results[i] = line
+            except Exception as e:   # surfaced by the assert below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(ids[s::8],))
+                   for s in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not errors and not any(t.is_alive() for t in threads)
+        assert results == want
+        stats = ported.stats()["decode_ids"]
+        assert stats["requests"] >= len(ids) and stats["errors"] == 0
+    finally:
+        ported.close()
+        ref.close()
+
+
+@pytest.mark.parametrize("beam_width,resident", [(3, True), (3, False),
+                                                 (1, True)])
+def test_generate_captions_lines_match_jax_writer(tiny, beam_width,
+                                                  resident):
+    cfg, vocab, params, store, root = tiny
+    ck = load_checkpoint(str(root / "ckpt"), CPU)
+    ids = store.ids()[:29] + store.ids()[:3]     # ragged tail, repeats
+    kw = dict(beam_width=beam_width, max_words=9, batch_size=4,
+              scan_depth=3, resident_store=resident)
+    ref = jax_generate(params, vocab, store, ids,
+                       compute_dtype=jnp.float32, **kw)
+    got = generate_captions(ck["decoder"], ck["vocab"],
+                            TorchStore.load(str(root / "store")), ids,
+                            device=CPU, **kw)
+    assert "\n".join(got).encode() == "\n".join(ref).encode()
