@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's caption-serving path once on one GPU.
+"""Drive the PyTorch/CUDA port's caption-serving paths once on one GPU.
 
     python3 chip_smoke.py        # from the repository root, one sm_90 card
 
@@ -19,12 +19,25 @@ exits nonzero:
    decode_batch 256, from several request threads; the kernels' launch
    counts must match the searches run, and in f32 (TF32 off) the kernel
    path's captions must agree with the plain path's;
-6. throughput: one 16x256 beam-3 decode in bf16.
+6. throughput: one 16x256 beam-3 decode in bf16;
+7. conv3x3 kernel against its plain version at the 9 distinct VGG-16 layer
+   shapes at B=8 in bf16, 3 of them in f32, and a ragged 2x13x17x5->7
+   shape with and without ReLU, with median CUDA-event times of the
+   kernel, the plain version and cuDNN's own bf16 conv;
+8. image service: a JAX-format joint checkpoint (``cnn/`` and
+   ``decoder/`` keys, ``average_image.npy``) with full-width random VGG-16
+   weights is written, loaded on the card and served by image from
+   several request threads; the conv kernel must launch 13 times per
+   encoder batch and the decoder kernels once per search step; in f32 (TF32
+   off) the kernel path's fc7 and captions must agree with the plain
+   path's;
+9. fc7 throughput: ``normalize_and_fc7`` over 16x256 uint8 images in bf16,
+   kernel path and plain path.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
-nothing of JAX, and exits nonzero without printing a result when no CUDA
-device is present.
+nothing of JAX or PIL, and exits nonzero without printing a result when
+no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -48,7 +61,16 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 # the reference width (bench.py's flagship geometry)
 HIDDEN, EMBED, CNN_DIM, VOCAB = (1000, 1000), 1000, 4096, 8800
 BEAM, MAX_WORDS, DECODE_BATCH = 3, 20, 256
+ENCODE_BATCH = 8            # the service's default encoder batch
+FC7_GROUPS, FC7_BATCH = 16, 256     # bench.py:97's fc7 geometry
 SEED = 0
+# the 9 distinct VGG-16 conv shapes (H = W, C, F) and how often each runs
+VGG_CONVS = [(224, 3, 64, 1), (224, 64, 64, 1), (112, 64, 128, 1),
+             (112, 128, 128, 1), (56, 128, 256, 1), (56, 256, 256, 2),
+             (28, 256, 512, 1), (28, 512, 512, 2), (14, 512, 512, 3)]
+F32_CONVS = {(224, 3, 64), (56, 256, 256), (14, 512, 512)}
+CONV_BATCH = 8
+REPORT_CONV = (56, 256, 256)    # the shape whose times the JSON line reports
 
 # kernel vs plain tolerances on the card
 #  lstm: the same operands (bf16-rounded or f32), f32 sums over X+H = 2000
@@ -58,6 +80,20 @@ LSTM_ATOL = 1e-4
 LSE_ATOL = 2e-5
 #  f32 service check: >= 99% equal captions; a differing one is a near-tie
 CAPTION_AGREEMENT, SCORE_ATOL = 0.99, 1e-3
+#  conv, max |kernel - plain| relative to max |plain|:
+#   bf16: the same bf16 operands, exact products, f32 sums in another
+#         order, one rounding to bf16 -> one bf16 ulp at the largest
+#         output, 2**-7;
+#   f32: f32 sums over K <= 4608 terms in another order, and cuDNN may pick
+#        a Winograd or FFT algorithm with its own rounding -> 1e-4
+CONV_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-4}
+#  f32 fc7, kernel path vs plain path, relative to max |fc7|: the conv
+#  tolerance through 13 layers and two matmuls
+FC7_RTOL = 1e-4
+#  bf16 fc7 (phase 9): both paths round at the same points, so they differ
+#  where a sum in another order lands on the other side of a bf16 rounding
+#  boundary, and that ulp propagates through 13 layers -> 3e-2
+FC7_BF16_RTOL = 3e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -348,6 +384,240 @@ def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
     return rate
 
 
+def phase_conv() -> dict:
+    import torch.nn.functional as F
+
+    from lrcn_tpu_torch.ops.kernels import (conv3x3_relu_reference,
+                                            fused_conv3x3_relu)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    cases = [(f"{h}x{h}x{c}->{f} {dtype}".replace("torch.", ""),
+              (CONV_BATCH, h, h, c, f), dtype, True)
+             for dtype in (torch.bfloat16, torch.float32)
+             for h, c, f, _ in VGG_CONVS
+             if dtype == torch.bfloat16 or (h, c, f) in F32_CONVS]
+    cases += [(f"ragged 2x13x17x5->7 relu={relu} {dtype}".replace(
+        "torch.", ""), (2, 13, 17, 5, 7), dtype, relu)
+        for dtype in (torch.bfloat16, torch.float32) for relu in (True, False)]
+    worst, times = 0.0, {}
+    for label, (b_dim, h, w_dim, c, f), dtype, relu in cases:
+        x = randn(b_dim, h, w_dim, c)
+        if c > 3:           # a post-ReLU activation, as inside VGG
+            x = torch.relu(x)
+        x = x.to(dtype)
+        w = (randn(3, 3, c, f) * (2.0 / (9 * c)) ** 0.5).to(dtype)
+        b = randn(f) * 0.1
+        y_k = fused_conv3x3_relu(x, w, b, apply_relu=relu)
+        y_p = conv3x3_relu_reference(x, w, b, dtype, apply_relu=relu)
+        torch.cuda.synchronize()
+        err = (y_k.float() - y_p.float()).abs().max().item()
+        scale = y_p.float().abs().max().item()
+        check(y_k.shape == y_p.shape and y_k.dtype == dtype,
+              f"conv3x3 {label}: {tuple(y_k.shape)} {y_k.dtype}")
+        check(err <= CONV_RTOL[dtype] * scale,
+              f"conv3x3 {label}: max |err| {err} > {CONV_RTOL[dtype]} x "
+              f"{scale}")
+        worst = max(worst, err)
+        ms = median_ms(lambda: fused_conv3x3_relu(x, w, b, apply_relu=relu))
+        plain = median_ms(lambda: conv3x3_relu_reference(
+            x, w, b, dtype, apply_relu=relu), reps=11, inner=3)
+        # cuDNN's own conv in the compute dtype on the NHWC (channels-last)
+        # tensors, bias in the conv, ReLU after: what a user would call
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = b.to(dtype)
+        cudnn = median_ms(lambda: torch.relu(F.conv2d(xc, wc, bc, padding=1)))
+        times[label] = (ms, plain)
+        flops = 2 * b_dim * h * w_dim * 9 * c * f
+        print(f"[7 conv3x3] {label}: B={b_dim} max|err|={err:.3g} (tol "
+              f"{CONV_RTOL[dtype]:.3g} x max|y| {scale:.3g}) kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
+              f"{plain:.4f} ms cudnn {cudnn:.4f} ms")
+        del x, w, y_k, y_p, xc, wc
+    stack = [sum(n * times[f"{h}x{h}x{c}->{f} bfloat16"][i]
+                 for h, c, f, n in VGG_CONVS) for i in (0, 1)]
+    print(f"[7 conv3x3] 13-conv stack at B={CONV_BATCH} bf16: kernel "
+          f"{stack[0]:.3f} ms, plain {stack[1]:.3f} ms")
+    h, c, f = REPORT_CONV
+    ms, plain = times[f"{h}x{h}x{c}->{f} bfloat16"]
+    return {"name": "fused_conv3x3_relu", "route": "cuda",
+            "source": "lrcn_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "lrcn_tpu/ops/pallas/conv3x3.py:61",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+
+
+def random_vgg(rng: np.random.Generator) -> dict[str, np.ndarray]:
+    """Full-width VGG-16 parameters as the JAX package initializes them
+    (He-normal convs, 0.01-normal fc6/fc7, zero biases;
+    lrcn_tpu/models/vgg.py:55-89), with '/'-joined keys."""
+    from lrcn_tpu_torch.models.vgg import CONV_NAMES, VGG16_LAYOUT
+
+    widths = dict(e for e in VGG16_LAYOUT if e != "pool")
+    tree, c_in = {}, 3
+    normal = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    for name in CONV_NAMES:
+        c_out = widths[name]
+        tree[f"{name}/w"] = normal(3, 3, c_in, c_out) * np.float32(
+            np.sqrt(2.0 / (9 * c_in)))
+        tree[f"{name}/b"] = np.zeros(c_out, np.float32)
+        c_in = c_out
+    tree["fc6/w"] = normal(7, 7, c_in, 4096) * np.float32(0.01)
+    tree["fc7/w"] = normal(4096, 4096) * np.float32(0.01)
+    tree["fc6/b"] = tree["fc7/b"] = np.zeros(4096, np.float32)
+    return tree
+
+
+def phase_images(tree, rng) -> dict:
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.data.images import normalize_batch
+    from lrcn_tpu_torch.decode.beam import beam_search
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+    from lrcn_tpu_torch.models.vgg import l1_normalize, vgg16_fc7
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.serve import CaptionService
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg = LRCNConfig(hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+                     vocab_size=VOCAB, compute_dtype="bfloat16")
+    path = os.path.join(WORK, "joint")
+    joint = {f"decoder/{k}": v for k, v in tree.items()}
+    joint.update({f"cnn/{k}": v for k, v in random_vgg(rng).items()})
+    write_checkpoint(path, joint, cfg)
+    mean = np.array([123.68, 116.78, 103.94], np.float32)
+    np.save(os.path.join(path, "average_image.npy"),
+            np.broadcast_to(mean, (224, 224, 3)))
+    del joint
+
+    ck = load_checkpoint(path, device="cuda")
+    check(ck["vgg"] is not None, "joint checkpoint loaded without its VGG")
+    svc = CaptionService(ck["cfg"], ck["decoder"], ck["vocab"],
+                         device="cuda", vgg=ck["vgg"],
+                         average_image=ck["average_image"], beam_width=BEAM,
+                         max_words=MAX_WORDS, decode_batch=DECODE_BATCH,
+                         encode_batch=ENCODE_BATCH)
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm_s = time.perf_counter() - t0
+    sizes = [1, 3, 8, 13, 24]
+    requests = [list(rng.integers(0, 256, (n, 224, 224, 3), np.uint8))
+                for n in sizes]
+
+    # the image path: every count starts at 0 here (warmup's batches were
+    # recorded when their requests returned, so they are counted before)
+    before = {k: s["batches"] for k, s in svc.stats().items()}
+    fused_conv3x3_relu.launches = 0
+    fused_lstm_step.launches = 0
+    topk_logsumexp.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+        answers = list(pool.map(svc.caption_images, requests))
+    serve_s = time.perf_counter() - t0
+    launches = {"fused_conv3x3_relu": fused_conv3x3_relu.launches,
+                "fused_lstm_step": fused_lstm_step.launches,
+                "topk_logsumexp": topk_logsumexp.launches}
+    svc.close()     # joins the batcher threads: their stats are final
+    after = svc.stats()
+    encodes = after["encode"]["batches"] - before["encode"]
+    searches = after["decode"]["batches"] - before["decode"]
+    for items, lines in zip(requests, answers):
+        check(len(lines) == len(items), f"images: {len(lines)} answers for "
+                                        f"{len(items)} requests")
+        for line in lines:
+            check(isinstance(line, str) and line.endswith(" ."),
+                  f"malformed caption {line!r}")
+    steps = MAX_WORDS + 1
+    check(encodes >= -(-sum(sizes) // ENCODE_BATCH)
+          and launches["fused_conv3x3_relu"] == 13 * encodes,
+          f"fused_conv3x3_relu launched {launches['fused_conv3x3_relu']} "
+          f"times in {encodes} encoder batches")
+    check(searches > 0 and launches["topk_logsumexp"] == steps * searches
+          and launches["fused_lstm_step"] == 2 * steps * searches,
+          f"decoder kernels launched {launches} in {searches} searches")
+    print(f"[8 images] warmup {warm_s:.2f} s; {sum(sizes)} captions for "
+          f"{len(requests)} concurrent image requests in {serve_s:.3f} s, "
+          f"{encodes} encoder batches of {ENCODE_BATCH}, {searches} "
+          f"searches; launches {launches}; e.g. {answers[0][0][:60]!r}")
+
+    # kernel path against plain path in f32, TF32 off
+    del svc, ck
+    ck32 = load_checkpoint(path, device="cuda", compute_dtype=torch.float32)
+    vgg32, dec32 = ck32["vgg"], ck32["decoder"]
+    avg = torch.from_numpy(ck32["average_image"]).cuda()
+    images = torch.from_numpy(rng.integers(
+        0, 256, (DECODE_BATCH, 224, 224, 3), np.uint8)).cuda()
+    fc7 = {}
+    for use_kernels in (True, False):
+        fc7[use_kernels] = torch.cat([
+            vgg16_fc7(vgg32, normalize_batch(chunk, avg), use_kernels)
+            for chunk in images.split(32)])
+    torch.cuda.synchronize()
+    err = (fc7[True] - fc7[False]).abs().max().item()
+    scale = fc7[False].abs().max().item()
+    check(err <= FC7_RTOL * scale, f"f32 fc7 kernel vs plain: max |err| "
+                                   f"{err} > {FC7_RTOL} x {scale}")
+    tok_k, sc_k = beam_search(dec32, l1_normalize(fc7[True]),
+                              beam_width=BEAM, max_words=MAX_WORDS)
+    tok_p, sc_p = beam_search(dec32, l1_normalize(fc7[False]),
+                              beam_width=BEAM, max_words=MAX_WORDS,
+                              use_kernels=False)
+    cap_k = detokenize_batch(tok_k.cpu().numpy(), ck32["vocab"])
+    cap_p = detokenize_batch(tok_p.cpu().numpy(), ck32["vocab"])
+    differ = [i for i, (a, b) in enumerate(zip(cap_k, cap_p)) if a != b]
+    gaps = (sc_k - sc_p).abs().cpu().numpy()
+    agree = 1 - len(differ) / len(cap_k)
+    check(agree >= CAPTION_AGREEMENT,
+          f"f32 image kernel vs plain captions agree on {agree:.4f} only")
+    check(all(gaps[i] <= SCORE_ATOL for i in differ),
+          f"differing captions' score gaps {gaps[differ].tolist()}")
+    print(f"[8 images f32] kernel vs plain path over {len(cap_k)} images: "
+          f"fc7 max|err| {err:.3g} (tol {FC7_RTOL} x max|fc7| {scale:.3g});"
+          f" {len(cap_k) - len(differ)}/{len(cap_k)} captions equal (need "
+          f"{CAPTION_AGREEMENT}); max score gap {gaps.max():.3g}; "
+          f"{len(set(cap_k))} distinct captions")
+    return launches
+
+
+def phase_fc7_throughput(rng, smi: str) -> float:
+    from lrcn_tpu_torch.data.images import normalize_and_fc7
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(os.path.join(WORK, "joint"), device="cuda")
+    vgg = ck["vgg"]
+    avg = torch.from_numpy(ck["average_image"]).cuda()
+    images = torch.from_numpy(rng.integers(
+        0, 256, (FC7_GROUPS, FC7_BATCH, 224, 224, 3), np.uint8)).cuda()
+    rates, fc7 = {}, {}
+    for use_kernels in (True, False):
+        run = lambda: normalize_and_fc7(vgg, images, avg, use_kernels)
+        run().sum().item()          # warm up
+        iters = 2
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            feats = run()
+        feats.sum().item()
+        dt = time.perf_counter() - t0
+        check(feats.shape == (FC7_GROUPS, FC7_BATCH, CNN_DIM)
+              and bool(torch.isfinite(feats).all()), "fc7 not finite")
+        rates[use_kernels] = iters * FC7_GROUPS * FC7_BATCH / dt
+        fc7[use_kernels] = feats
+        print(f"[9 fc7 throughput] {FC7_GROUPS}x{FC7_BATCH} uint8 images, "
+              f"bf16, {'kernel' if use_kernels else 'plain'} path: "
+              f"{rates[use_kernels]:.1f} images/s ({dt / iters * 1e3:.1f} "
+              f"ms per call) on {smi}")
+    err = (fc7[True] - fc7[False]).abs().max().item()
+    scale = fc7[False].abs().max().item()
+    check(err <= FC7_BF16_RTOL * scale, f"bf16 fc7 kernel vs plain: max "
+                                        f"|err| {err} > {FC7_BF16_RTOL} x "
+                                        f"{scale}")
+    print(f"[9 fc7 throughput] bf16 fc7 kernel vs plain path over "
+          f"{FC7_GROUPS * FC7_BATCH} images: max|err| {err:.3g} (tol "
+          f"{FC7_BF16_RTOL} x max|fc7| {scale:.3g})")
+    return rates[True]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; it needs "
@@ -362,11 +632,15 @@ def main() -> None:
     tree = random_tree(rng)
     kernels = [phase_lstm(tree, rng), phase_topk(rng)]
     launches, feats = phase_service(tree, rng)
+    phase_throughput(os.path.join(WORK, "ckpt"), feats, smi)
+    kernels.append(phase_conv())
+    launches.update(fused_conv3x3_relu=phase_images(tree, rng)[
+        "fused_conv3x3_relu"])
+    phase_fc7_throughput(rng, smi)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         check(entry["launches"] > 0, f"{entry['name']} never launched on "
                                      f"the main path")
-    phase_throughput(os.path.join(WORK, "ckpt"), feats, smi)
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

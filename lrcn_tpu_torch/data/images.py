@@ -1,0 +1,213 @@
+"""Image preprocessing and batched fc7 extraction (counterpart of
+``lrcn_tpu/data/images.py``).
+
+Host half, copied from the JAX module: decode (optionally downloading a
+URL, lrcn.jl:751-754), resize so the SHORTEST side is 224 with the
+reference's integer arithmetic ``(dim * 224) ÷ min(dims)`` (lrcn.jl:756),
+center-crop 224x224 (:757-759), grayscale -> 3 channels (:761-763).  PIL
+is imported inside the functions that decode, so importing this module
+needs no PIL.  The JAX module's threaded C++ JPEG loader
+(``lrcn_tpu/native/imageloader.cpp``) is not ported: every format decodes
+through PIL here, which gives the same pixels as the JAX module for PNGs
+and may differ from its native path for JPEGs.
+
+Device half: uint8 -> float32, minus the mean image (lrcn.jl:771), then
+VGG-16 to fc7, over groups of batches with one upload and one readback
+per group (``normalize_and_fc7``, the counterpart of
+``_normalize_and_fc7_scan``).  Images stay (H, W, 3) NHWC end to end.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import urllib.request
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
+from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7
+
+CROP = 224
+
+
+def decode_image(path_or_url: str) -> np.ndarray:
+    """Decode an image file (or URL) to (H, W, 3) uint8 RGB.
+
+    Reference: download at lrcn.jl:752-754, load at :755, grayscale
+    promotion at :761-763.
+    """
+    from PIL import Image
+
+    path = path_or_url
+    if "://" in path_or_url:
+        suffix = os.path.splitext(path_or_url.split("?")[0])[1] or ".jpg"
+        fd, path = tempfile.mkstemp(suffix=suffix)
+        os.close(fd)
+        urllib.request.urlretrieve(path_or_url, path)
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def resize_crop(image: np.ndarray) -> np.ndarray:
+    """Shortest-side-224 resize + center crop -> (224, 224, 3) uint8.
+
+    Uses the reference's integer resize arithmetic (lrcn.jl:756) and crop
+    offsets (lrcn.jl:757-759).
+    """
+    from PIL import Image
+
+    h, w = image.shape[:2]
+    m = min(h, w)
+    new_h, new_w = (h * CROP) // m, (w * CROP) // m
+    im = Image.fromarray(image).resize((new_w, new_h), Image.BILINEAR)
+    arr = np.asarray(im, np.uint8)
+    i0 = (new_h - CROP) // 2
+    j0 = (new_w - CROP) // 2
+    return arr[i0:i0 + CROP, j0:j0 + CROP]
+
+
+def load_blobs(blobs: Sequence[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """Encoded image blobs -> ((N,224,224,3) uint8, ok (N,) bool).
+
+    Decodes through PIL; ok[i] is False for a blob PIL cannot read, and
+    that row stays zero.  ``CaptionService.caption_image_bytes`` runs
+    through here."""
+    import io
+
+    from PIL import Image
+
+    n = len(blobs)
+    imgs = np.zeros((n, CROP, CROP, 3), np.uint8)
+    ok = np.zeros(n, bool)
+    for idx, blob in enumerate(blobs):
+        try:
+            with Image.open(io.BytesIO(blob)) as im:
+                imgs[idx] = resize_crop(
+                    np.asarray(im.convert("RGB"), np.uint8))
+            ok[idx] = True
+        except Exception:   # noqa: BLE001 — bad bytes stay flagged
+            pass
+    return imgs, ok
+
+
+def load_preprocessed(path: str) -> np.ndarray:
+    """One image -> (224,224,3) uint8."""
+    return resize_crop(decode_image(path))
+
+
+def load_images(paths: Sequence[str]) -> np.ndarray:
+    """Decode+resize+crop a batch -> (N, 224, 224, 3) uint8."""
+    return np.stack([load_preprocessed(p) for p in paths])
+
+
+def normalize_batch(images_u8: torch.Tensor, average_image: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, 224, 224, 3) uint8 -> float32, 255-scale minus mean image.
+
+    The reference loads 0..1 floats and computes ``255 * x - avg``
+    (lrcn.jl:771); uint8 pixels are already 255-scaled.
+    """
+    return images_u8.float() - average_image
+
+
+def preprocess(path_or_url: str, average_image: np.ndarray,
+               device="cpu") -> torch.Tensor:
+    """Single-image pipeline -> (1, 224, 224, 3) float32 on ``device``."""
+    img = torch.tensor(resize_crop(decode_image(path_or_url))[None])
+    avg = torch.tensor(np.asarray(average_image, np.float32))
+    return normalize_batch(img.to(device), avg.to(device))
+
+
+def normalize_and_fc7(encoder: VGGEncoder, images_u8: torch.Tensor,
+                      average_image: torch.Tensor,
+                      use_kernels: bool = True) -> torch.Tensor:
+    """(K, B, 224, 224, 3) uint8 -> (K, B, F7) fc7, on the encoder's device.
+
+    The 255-scale/mean-subtract preprocessing (lrcn.jl:771) runs on the
+    device batch by batch, and the K batches go back to back with no host
+    sync: the caller uploads once and reads back once per K*B images.
+    """
+    return torch.stack([vgg16_fc7(encoder,
+                                  normalize_batch(batch, average_image),
+                                  use_kernels)
+                        for batch in images_u8])
+
+
+def extract_features(
+    image_paths: dict[int, str],
+    encoder: VGGEncoder,
+    average_image: np.ndarray,
+    *,
+    store: FeatureStore | None = None,
+    batch_size: int = 64,
+    normalize: bool = True,
+    scan_depth: int = 8,
+    checkpoint_dir: str | None = None,
+    flush_every: int = 8,
+) -> FeatureStore:
+    """Batched fc7 extraction into a FeatureStore (lrcn.jl:190-221).
+
+    Semantics of the JAX ``extract_features``: resumable (ids already in
+    ``store`` are skipped, lrcn.jl:203); the last partial batch is padded
+    to ``batch_size``; ``scan_depth`` batches go to the device as one
+    group (one upload, one readback); a depth-1 host thread decodes group
+    N+1 while the device runs group N.  With ``checkpoint_dir``, an atomic
+    snapshot (:meth:`FeatureStore.save_atomic`) lands every
+    ``flush_every`` groups and once at the end.  The compute dtype is the
+    encoder's.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    todo = (store.missing(image_paths) if store is not None
+            else list(dict.fromkeys(int(i) for i in image_paths)))
+    device = encoder.device
+    avg = torch.from_numpy(np.asarray(average_image, np.float32)).to(device)
+
+    def load_host_batch(ids: list) -> np.ndarray:
+        imgs = load_images([image_paths[i] for i in ids])
+        pad = batch_size - len(ids)
+        if pad:
+            imgs = np.concatenate(
+                [imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
+        return imgs
+
+    def load_host_group(id_batches: list[list]) -> np.ndarray:
+        return np.stack([load_host_batch(ids) for ids in id_batches])
+
+    id_batches = [todo[s:s + batch_size]
+                  for s in range(0, len(todo), batch_size)]
+    id_groups = [id_batches[s:s + scan_depth]
+                 for s in range(0, len(id_batches), scan_depth)]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # depth-1 prefetch: exactly one in-flight decode future
+        next_future = (pool.submit(load_host_group, id_groups[0])
+                       if id_groups else None)
+        for gi, group in enumerate(id_groups):
+            imgs = next_future.result()
+            next_future = (
+                pool.submit(load_host_group, id_groups[gi + 1])
+                if gi + 1 < len(id_groups) else None)
+            group_feats = normalize_and_fc7(
+                encoder, torch.from_numpy(imgs).to(device), avg
+            ).cpu().numpy()
+            for ids, feats in zip(group, group_feats):
+                feats = feats[:len(ids)]
+                if normalize:
+                    feats = l1_normalize(feats)
+                if store is None:   # dim comes from the encoder's output
+                    store = FeatureStore(dim=feats.shape[-1],
+                                         normalized=normalize)
+                for i, f in zip(ids, feats):
+                    store.add(i, f)
+            if (checkpoint_dir is not None and flush_every > 0
+                    and (gi + 1) % flush_every == 0
+                    and gi + 1 < len(id_groups)):
+                store.save_atomic(checkpoint_dir)
+    if store is None:
+        store = FeatureStore(normalized=normalize)
+    if checkpoint_dir is not None:
+        store.save_atomic(checkpoint_dir)
+    return store

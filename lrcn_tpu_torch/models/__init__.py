@@ -1,5 +1,9 @@
-from lrcn_tpu_torch.models import lrcn  # noqa: F401
+from lrcn_tpu_torch.models import lrcn, vgg  # noqa: F401
 from lrcn_tpu_torch.models.lrcn import (  # noqa: F401
     LRCNDecoder,
     params_from_numpy,
+)
+from lrcn_tpu_torch.models.vgg import (  # noqa: F401
+    VGGEncoder,
+    vgg_params_from_numpy,
 )

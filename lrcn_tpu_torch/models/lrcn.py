@@ -73,12 +73,13 @@ class LRCNDecoder(nn.Module):
         return self.lstm1_b.shape[0] // 4, self.lstm2_b.shape[0] // 4
 
 
-def _flat(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+def flat_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested or flat parameter tree as '/'-joined keys -> numpy."""
     out = {}
     for key, value in tree.items():
         name = f"{prefix}{key}"
         if isinstance(value, Mapping):
-            out.update(_flat(value, name + "/"))
+            out.update(flat_tree(value, name + "/"))
         else:
             out[name] = np.asarray(value)
     return out
@@ -92,7 +93,7 @@ def params_from_numpy(tree: Mapping, device, compute_dtype: torch.dtype
     as ``lrcn_tpu.models.lrcn.init_params`` returns after ``np.asarray``)
     or flat with the checkpoint's '/'-joined keys (``"lstm1/w"``).
     """
-    flat = _flat(tree)
+    flat = flat_tree(tree)
     missing = [k for k in PARAM_KEYS if k not in flat]
     if missing:
         raise KeyError(f"parameter tree lacks {missing}")

@@ -1,0 +1,256 @@
+"""VGG-16 image encoder to fc7 on PyTorch (counterpart of
+``lrcn_tpu/models/vgg.py``), inference side.
+
+Same network, layout and numerics as the JAX package (reference
+MatConvNet walk, lrcn.jl:696-748): 13 3x3 convolutions (pad 1,
+cross-correlation), each followed by ReLU, 2x2/2 max pools after blocks of
+2, 2, 3, 3, 3 convs, then fc6 (7*7*512 -> 4096) + ReLU and fc7 (4096 ->
+4096).  The reference stops at fc7, so **relu7 is not applied**.
+
+Activations are NHWC and conv weights HWIO, as in JAX.  ``VGGEncoder``
+keeps every matmul and conv weight in the compute dtype, cast once at
+load; biases stay float32.  Each conv runs through the fused
+conv + bias + ReLU CUDA kernel (``ops/kernels/conv3x3.py``); the pools and
+fc6/fc7 are plain ``torch`` ops, as the JAX package leaves them to XLA.
+fc6 is held as a ``(7*7*C, 4096)`` matrix, the NHWC flatten of its
+``(7, 7, C, 4096)`` filters, which is the JAX einsum
+``bhwc,hwcf->bf`` (``vgg.py:144-147``) as one matmul.
+
+``load_matconvnet`` and its helpers are copied from the JAX module
+(scipy and numpy only).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from lrcn_tpu_torch.models.lrcn import flat_tree
+from lrcn_tpu_torch.ops.kernels import (conv3x3_relu_reference,
+                                        fused_conv3x3_relu)
+from lrcn_tpu_torch.ops.lstm import matmul
+
+# (name, out_channels) for the 13 conv layers; 'pool' marks 2x2/2 max pools.
+# Mirrors the MatConvNet layer list walked at lrcn.jl:701-718.
+VGG16_LAYOUT: tuple = (
+    ("conv1_1", 64), ("conv1_2", 64), "pool",
+    ("conv2_1", 128), ("conv2_2", 128), "pool",
+    ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), "pool",
+    ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), "pool",
+    ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512), "pool",
+)
+CONV_NAMES = tuple(e[0] for e in VGG16_LAYOUT if e != "pool")
+
+FC6_DIM = 4096
+FC7_DIM = 4096
+
+
+class VGGEncoder(nn.Module):
+    """The encoder's weights on one device, ready for ``vgg16_fc7``.
+
+    Build it with :func:`vgg_params_from_numpy`.  Conv weights are
+    ``<name>_w`` (3, 3, C, F) HWIO and ``<name>_b`` (F,); ``fc6_w`` is
+    (7*7*C, F6), ``fc7_w`` (F6, F7).  The weights are buffers: the encoder
+    computes no gradient.
+    """
+
+    def __init__(self, params: Mapping[str, torch.Tensor],
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute_dtype must be bfloat16 or float32, "
+                             f"got {compute_dtype}")
+        self.compute_dtype = compute_dtype
+        fc6 = params["fc6/w"]
+        if fc6.dim() != 4 or tuple(fc6.shape[:2]) != (7, 7):
+            raise ValueError(f"fc6/w {tuple(fc6.shape)}: want (7, 7, C, F)")
+        weights = {f"{n}/w": params[f"{n}/w"] for n in CONV_NAMES}
+        weights["fc6/w"] = fc6.reshape(-1, fc6.shape[-1])
+        weights["fc7/w"] = params["fc7/w"]
+        for key, value in weights.items():
+            self.register_buffer(key.replace("/", "_"),
+                                 value.to(compute_dtype).contiguous())
+        for name in (*CONV_NAMES, "fc6", "fc7"):
+            self.register_buffer(f"{name}_b",
+                                 params[f"{name}/b"].float().contiguous())
+
+    @property
+    def device(self) -> torch.device:
+        return self.fc7_b.device
+
+    @property
+    def feature_dim(self) -> int:
+        return self.fc7_b.shape[0]
+
+
+def vgg_params_from_numpy(tree: Mapping, device, compute_dtype: torch.dtype
+                          ) -> VGGEncoder:
+    """Build an encoder on ``device`` from the JAX VGG parameter pytree.
+
+    ``tree`` holds numpy arrays, nested (``{"conv1_1": {"w": ...}}``, as
+    ``init_vgg_params`` and ``load_matconvnet`` return) or flat with
+    '/'-joined keys (``"conv1_1/w"``).
+    """
+    flat = flat_tree(tree)
+    keys = [f"{n}/{p}" for n in (*CONV_NAMES, "fc6", "fc7") for p in "wb"]
+    missing = [k for k in keys if k not in flat]
+    if missing:
+        raise KeyError(f"VGG parameter tree lacks {missing}")
+    params = {k: torch.tensor(np.asarray(flat[k], np.float32)) for k in keys}
+    return VGGEncoder(params, compute_dtype).to(torch.device(device))
+
+
+def max_pool(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 max pool on NHWC (Knet ``pool`` defaults,
+    lrcn.jl:726); an odd last row or column is dropped, as JAX's
+    'VALID' window does."""
+    b, h, w, c = x.shape
+    x = x[:, :h // 2 * 2, :w // 2 * 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def vgg16_fc7(encoder: VGGEncoder, images: torch.Tensor,
+              use_kernels: bool = True) -> torch.Tensor:
+    """images (B, 224, 224, 3) preprocessed, NHWC -> fc7 (B, F7) float32,
+    NO relu7.
+
+    ``use_kernels=False`` runs every conv through the kernel's plain
+    version even on CUDA tensors (the plain path that the kernel is held
+    against on the card); the default runs the fused kernel, whose wrapper
+    itself takes the plain version for CPU tensors.
+    """
+    cd = encoder.compute_dtype
+    x = images
+    for entry in VGG16_LAYOUT:
+        if entry == "pool":
+            x = max_pool(x)
+            continue
+        w = getattr(encoder, f"{entry[0]}_w")
+        b = getattr(encoder, f"{entry[0]}_b")
+        x = (fused_conv3x3_relu(x, w, b) if use_kernels
+             else conv3x3_relu_reference(x, w, b, cd))
+    x = torch.relu(matmul(x.reshape(x.shape[0], -1), encoder.fc6_w, cd)
+                   + encoder.fc6_b)
+    # fc7 linear: the reference breaks before relu7 (lrcn.jl:717)
+    return matmul(x, encoder.fc7_w, cd) + encoder.fc7_b
+
+
+def vgg16_fc7_grouped(encoder: VGGEncoder, images: torch.Tensor,
+                      use_kernels: bool = True) -> torch.Tensor:
+    """(K, B, 224, 224, 3) -> (K, B, F7): the counterpart of
+    ``vgg16_fc7_scan``, K batches back to back with no host sync."""
+    return torch.stack([vgg16_fc7(encoder, batch, use_kernels)
+                        for batch in images])
+
+
+def l1_normalize(feats: torch.Tensor) -> torch.Tensor:
+    """The reference's live-image normalization: x / sum(x) (lrcn.jl:597).
+
+    It divides by the plain sum (not the abs-sum), as the JAX package
+    does."""
+    return feats / feats.sum(dim=-1, keepdim=True)
+
+
+# --- MatConvNet import (copied from lrcn_tpu/models/vgg.py) ---
+
+
+def _layer_weights(layer: dict) -> tuple[np.ndarray, np.ndarray] | None:
+    """(filters, biases) from a MatConvNet layer struct, or None.
+
+    Handles both release layouts: the beta16+ ``weights`` 1x2 cell (what
+    the reference's Knet loader reads, lrcn.jl:706-712) and the original
+    2014 release's separate ``filters``/``biases`` fields.  scipy's
+    ``simplify_cells`` turns the cell into a list/object-array either way.
+    """
+    if layer.get("weights") is not None and len(layer["weights"]) >= 2:
+        pair = layer["weights"]
+        return np.asarray(pair[0]), np.asarray(pair[1])
+    if layer.get("filters") is not None:
+        return np.asarray(layer["filters"]), np.asarray(layer["biases"])
+    return None
+
+
+def _fc6_weight(w: np.ndarray) -> np.ndarray:
+    """fc6 filters -> (7, 7, 512, D).
+
+    The .mat stores fc6 as a (7,7,512,4096) conv (kept as-is; any 4-D
+    shape passes through so width-scaled test fixtures work).  If a
+    release stores it pre-flattened to 2-D, the flatten was MATLAB
+    column-major (the ``mat()`` order the reference relies on,
+    lrcn.jl:712,728): row = h + 7*w + 49*c, undone below.
+    """
+    if w.ndim == 4:
+        return w
+    if w.ndim == 2 and w.shape[0] == 7 * 7 * 512:
+        return w.reshape(512, 7, 7, -1).transpose(2, 1, 0, 3)
+    raise ValueError(f"unexpected fc6 weight shape {w.shape}")
+
+
+def _average_image(mat: dict) -> np.ndarray:
+    """normalization.averageImage from either release layout.
+
+    beta16+ nests it under ``meta`` (what the reference reads,
+    lrcn.jl:113); the 2014 release keeps ``normalization`` top-level.
+    Stored as a (224,224,3) image or a per-channel mean ((3,) / (1,1,3),
+    squeezed to (3,) by simplify_cells) — broadcast to the full image.
+    """
+    norm = None
+    meta = mat.get("meta")
+    if isinstance(meta, dict):
+        norm = meta.get("normalization")
+    if norm is None:
+        norm = mat.get("normalization")
+    if not isinstance(norm, dict) or "averageImage" not in norm:
+        raise ValueError(
+            "no normalization.averageImage in the .mat (looked under "
+            "'meta' and top-level)")
+    avg = np.asarray(norm["averageImage"], np.float32)
+    avg = avg.reshape(-1) if avg.size == 3 else avg
+    if avg.ndim == 1:
+        avg = np.broadcast_to(avg, (224, 224, 3)).copy()
+    if avg.ndim != 3 or avg.shape[-1] != 3:
+        raise ValueError(f"unexpected averageImage shape {avg.shape}")
+    return avg
+
+
+def load_matconvnet(path: str) -> tuple[dict, np.ndarray]:
+    """Import ``imagenet-vgg-verydeep-16.mat`` -> (params, average_image).
+
+    ``params`` is the nested numpy tree of the JAX package's
+    ``load_matconvnet``: walk the layer list in order, collect weights for
+    conv/fc layers, stop at fc7 inclusive (lrcn.jl:697-721).  fc6 keeps its
+    (7,7,512,4096) conv structure; fc7 ((1,1,4096,4096), squeezed by scipy
+    to 2-D) becomes a dense (4096,4096).  Both MatConvNet release layouts
+    load (see ``_layer_weights`` / ``_average_image``).
+    """
+    from scipy.io import loadmat
+
+    mat = loadmat(path, simplify_cells=True)
+    layers = mat["layers"]
+    if isinstance(layers, dict):   # single-layer cell squeezed to a struct
+        layers = [layers]
+    params: dict = {}
+    for layer in layers:
+        name = str(layer["name"])
+        if not (name.startswith("conv") or name.startswith("fc")):
+            continue
+        pair = _layer_weights(layer)
+        if pair is None:
+            raise ValueError(f"layer {name!r} has no weights/filters")
+        w, b = pair
+        b = np.asarray(b, np.float32).reshape(-1)
+        w = np.asarray(w, np.float32)
+        if name == "fc6":
+            w = _fc6_weight(w)
+        elif name.startswith("fc"):
+            w = w.reshape(-1, w.shape[-1])
+        params[name] = {"w": w, "b": b}
+        if name == "fc7":
+            break
+    if "fc7" not in params:
+        raise ValueError("no fc7 layer found — not a VGG-16 MatConvNet "
+                         "file?")
+    return params, _average_image(mat)

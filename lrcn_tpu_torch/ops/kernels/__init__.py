@@ -2,6 +2,10 @@
 ``nvcc`` build (``build.py``).  Every wrapper keeps its plain PyTorch
 version beside it and counts its launches in ``<wrapper>.launches``."""
 
+from lrcn_tpu_torch.ops.kernels.conv3x3 import (  # noqa: F401
+    conv3x3_relu_reference,
+    fused_conv3x3_relu,
+)
 from lrcn_tpu_torch.ops.kernels.lstm_step import (  # noqa: F401
     fused_lstm_step,
     lstm_step_reference,

@@ -2,10 +2,11 @@
 
 Every ``csrc/*.cu`` file compiles, at first use, into one shared library
 with a plain C interface under ``build/lrcn_tpu_torch/`` at the root of
-the checkout.  The library's name carries a hash of the sources and the
-flags, so an edited kernel rebuilds and an unchanged one loads from the
-cache.  ``nvcc``'s report (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside the library as ``<name>.log``.
+the checkout: one ``nvcc -c`` per source, all started together, then one
+link.  The library's name carries a hash of the sources and the flags, so
+an edited kernel rebuilds and an unchanged one loads from the cache.
+``nvcc``'s report (``-Xptxas -v``: registers, shared memory, spills) is
+kept beside the library as ``<name>.log``.
 
 Importing this module needs neither ``nvcc`` nor a GPU: the CPU tests
 import every module of the package.
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -25,8 +27,10 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "lrcn_tpu_torch"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes; every entry point returns cudaGetLastError()
@@ -35,6 +39,8 @@ SIGNATURES = {
     "lrcn_lstm_step": [_P] * 7 + [_I] * 4 + [_P],
     # logits, vals, idx, lse, R, V, k, stream
     "lrcn_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
+    # x, w, b, y, B, H, W, C, F, relu, bf16, stream
+    "lrcn_conv3x3": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -46,7 +52,7 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -65,6 +71,22 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands concurrently; (cmd, returncode, output) each."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outs = [proc.communicate()[0] for proc in procs]
+        return [(cmd, proc.returncode, out)
+                for cmd, proc, out in zip(cmds, procs, outs)]
+    finally:
+        for proc in procs:      # only after an exception: stop the rest
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def build() -> Path:
     """Compile the kernels unless the cached library for these sources
     exists; return its path.  Raises with nvcc's output on failure."""
@@ -72,17 +94,24 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)   # atomic: concurrent builders never see half a file
+    nvcc = find_nvcc()
+    work = Path(tempfile.mkdtemp(prefix=f"{path.stem}.", dir=BUILD_DIR))
+    try:
+        cu = [src for src in sources() if src.suffix == ".cu"]
+        objs = [str(work / f"{src.stem}.o") for src in cu]
+        results = _run_all([[nvcc, *COMPILE_FLAGS, "-o", obj, str(src)]
+                            for src, obj in zip(cu, objs)])
+        tmp = work / path.name
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *objs]])
+        log = "".join(" ".join(cmd) + "\n" + out for cmd, _, out in results)
+        path.with_suffix(".log").write_text(log)
+        failed = [rc for _, rc, _ in results if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(tmp, path)   # atomic: no reader sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return path
 
 

@@ -1,0 +1,107 @@
+"""Fused 3x3 conv + bias + ReLU: CUDA kernel wrapper and its plain PyTorch
+version.
+
+Counterpart of ``lrcn_tpu/ops/pallas/conv3x3.py:fused_conv3x3_relu``; the
+kernel is ``csrc/conv3x3.cu``, an implicit GEMM over the NHWC input that
+never materialises a padded copy.  One launch computes
+
+    y = relu(conv3x3(x, w) + b)      cross-correlation, pad 1, stride 1
+
+with x and w in the compute dtype, f32 sums, the f32 bias added to the f32
+sum and the result cast to the compute dtype, in NHWC / HWIO layout.  The
+compute dtype is the dtype of ``w``: the encoder caches its conv weights
+in it once, at load.  bf16 is the serving path; f32 is for parity runs.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from lrcn_tpu_torch import require_cuda
+from lrcn_tpu_torch.ops.kernels import build
+
+_count_lock = threading.Lock()
+
+
+def conv3x3_relu_reference(x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor,
+                           compute_dtype: torch.dtype = torch.bfloat16,
+                           apply_relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the kernel.
+
+    x and w are rounded to ``compute_dtype`` and upcast to f32, convolved
+    in f32 (``F.conv2d``; on CUDA, f32 parity needs
+    ``torch.backends.cudnn.allow_tf32 = False``), then the f32 bias and
+    ReLU are applied and the result cast to ``compute_dtype``: the
+    rounding of the Pallas kernel.
+    """
+    xq = x.to(compute_dtype).float().permute(0, 3, 1, 2)
+    wq = w.to(compute_dtype).float().permute(3, 2, 0, 1)
+    y = F.conv2d(xq, wq, padding=1).permute(0, 2, 3, 1) + b.float()
+    if apply_relu:
+        y = torch.relu(y)
+    return y.to(compute_dtype).contiguous()
+
+
+def _check(x, w, b) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)}: want (B, H, W, C)")
+    c = x.shape[-1]
+    if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c):
+        raise ValueError(f"w {tuple(w.shape)} incompatible with x "
+                         f"{tuple(x.shape)}")
+    if b.shape != (w.shape[-1],):
+        raise ValueError(f"b {tuple(b.shape)} != ({w.shape[-1]},)")
+    if w.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w must be bfloat16 or float32, got {w.dtype}")
+    if b.dtype != torch.float32:
+        raise TypeError(f"b must be float32, got {b.dtype}")
+    if not x.is_floating_point():
+        raise TypeError(f"x must be floating point, got {x.dtype}")
+    for name, t in (("w", w), ("b", b)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fused_conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       apply_relu: bool = True) -> torch.Tensor:
+    """``relu(conv3x3(x, w) + b)`` as one kernel launch, NHWC / HWIO.
+
+    Args:
+      x: (B, H, W, C) input; cast to the dtype of ``w`` if it is not
+        already (the first layer's input is the f32 normalized image).
+      w: (3, 3, C, F) filters, bf16 or f32 (the compute dtype).
+      b: (F,) f32 bias.
+
+    Returns (B, H, W, F) in the compute dtype.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise.
+    """
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return conv3x3_relu_reference(x, w, b, w.dtype, apply_relu)
+    device = require_cuda(x.device)
+    x = x.to(w.dtype).contiguous()
+    b_dim, h, w_dim, c = x.shape
+    f = w.shape[-1]
+    y = torch.empty((b_dim, h, w_dim, f), dtype=w.dtype, device=device)
+    if y.numel() == 0:
+        return y
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.lrcn_conv3x3(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            b_dim, h, w_dim, c, f, int(apply_relu),
+            int(w.dtype == torch.bfloat16), stream)
+    build.check(status, "lrcn_conv3x3")
+    with _count_lock:
+        fused_conv3x3_relu.launches += 1
+    return y
+
+
+fused_conv3x3_relu.launches = 0

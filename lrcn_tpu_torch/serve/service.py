@@ -1,16 +1,24 @@
-"""Online caption service on one CUDA device (counterpart of the decode
-stage of ``lrcn_tpu/serve/service.py``).
+"""Online caption service on one CUDA device (counterpart of
+``lrcn_tpu/serve/service.py``).
 
-Requests for captions, by image id or by raw fc7 rows, queue behind a
+Two pipelined stages, each behind its own ``DynamicBatcher``:
+
+- **encode** (only when the service was given a VGG encoder): uint8
+  images are padded to ``encode_batch`` rows, uploaded, normalized by the
+  mean image, run through VGG-16 to fc7 and L1-normalized on the device,
+  exactly like the reference's live path (lrcn.jl:597);
+- **decode**: fc7 rows -> captions through batched beam search.
+
+Requests for captions by image id and by fc7 rows queue behind a decode
 ``DynamicBatcher`` each.  Its dispatcher thread pads what it drained to a
 whole number of ``decode_batch``-row batches, up to ``MAX_DECODE_GROUPS``
 of them in one search (burst absorption), and enqueues the search on the
 device without waiting; the collector thread fetches the tokens and
 detokenizes them.  Requests by id ship int64 row indices into a feature
-table that lives on the device, uploaded once at construction.
+table that lives on the device, uploaded once at construction.  Requests
+by image go through the encode stage, then the fc7-row batcher.
 
-Not ported yet: the encoder stage (``caption_images``), the device mesh
-and the HTTP front ends.
+Not ported yet: the device mesh and the HTTP front ends.
 """
 
 from __future__ import annotations
@@ -24,32 +32,41 @@ from lrcn_tpu_torch import as_device
 from lrcn_tpu_torch.config import LRCNConfig
 from lrcn_tpu_torch.core.vocab import Vocab
 from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
+from lrcn_tpu_torch.data.images import CROP, normalize_batch
 from lrcn_tpu_torch.decode.beam import rows_search, search
 from lrcn_tpu_torch.decode.writer import detokenize_batch
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
+from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7
+from lrcn_tpu_torch.models.vgg import l1_normalize as l1_normalize_device
 from lrcn_tpu_torch.serve.batcher import DynamicBatcher
+from lrcn_tpu_torch.train.joint import identity_average_image
 
 
 class CaptionService:
     """Caption requests against a loaded decoder, batched dynamically.
 
     ``caption_ids`` looks features up in the store; ``caption_features``
-    takes fc7 rows.  Both are thread-safe: any number of request threads
-    may call them, and all device work funnels through the batchers'
-    dispatcher threads.
+    takes fc7 rows; ``caption_images`` and ``caption_image_bytes`` run the
+    encoder (requires ``vgg``).  All are thread-safe: any number of
+    request threads may call them, and all device work funnels through the
+    batchers' dispatcher threads.
     """
 
     MAX_DECODE_GROUPS = 4   # batches per burst search
 
     def __init__(self, cfg: LRCNConfig, decoder: LRCNDecoder, vocab: Vocab,
                  *, device, store: FeatureStore | None = None,
+                 vgg: VGGEncoder | None = None,
+                 average_image: np.ndarray | None = None,
                  beam_width: int = 3, max_words: int = 30,
-                 decode_batch: int = 64, max_wait_ms: float = 5.0,
+                 decode_batch: int = 64, encode_batch: int = 8,
+                 max_wait_ms: float = 5.0,
                  request_timeout_s: float = 60.0):
         self.device = as_device(device)
-        if decoder.device != self.device:
-            raise ValueError(f"decoder is on {decoder.device}, service "
-                             f"device is {self.device}")
+        for name, model in (("decoder", decoder), ("vgg", vgg)):
+            if model is not None and model.device != self.device:
+                raise ValueError(f"{name} is on {model.device}, service "
+                                 f"device is {self.device}")
         self.cfg = cfg
         self.decoder = decoder
         self.vocab = vocab
@@ -77,6 +94,19 @@ class CaptionService:
                 self._decode_rows_grouped, finalize=self._decode_finalize,
                 max_batch=max_batch, max_wait_ms=max_wait_ms,
                 name="decode_ids")
+        self.vgg = vgg
+        self._encode = self._average_image = None
+        if vgg is not None:
+            if vgg.feature_dim != cfg.cnn_feature_dim:
+                raise ValueError(f"encoder gives {vgg.feature_dim} features,"
+                                 f" decoder expects {cfg.cnn_feature_dim}")
+            avg = (identity_average_image() if average_image is None
+                   else np.asarray(average_image, np.float32))
+            self._average_image = torch.from_numpy(avg).to(self.device)
+            self._encode = DynamicBatcher(
+                self._encode_fn, finalize=self._encode_finalize,
+                max_batch=encode_batch, max_wait_ms=max_wait_ms,
+                name="encode")
 
     # --- stage fns (dispatcher threads) ---
 
@@ -116,6 +146,21 @@ class CaptionService:
         tokens = tokens[:n].cpu().numpy()   # waits for the device here
         return detokenize_batch(tokens, self.vocab)
 
+    def _encode_fn(self, images: Sequence[np.ndarray]):
+        """ENQUEUE one padded encoder batch: upload uint8, normalize, VGG
+        to fc7, L1-normalize, all on the device; returns (n, device fc7
+        rows) without waiting."""
+        n = len(images)
+        batch = np.zeros((self._encode.max_batch, CROP, CROP, 3), np.uint8)
+        batch[:n] = np.asarray(images, np.uint8)
+        pixels = normalize_batch(torch.from_numpy(batch).to(self.device),
+                                 self._average_image)
+        return n, l1_normalize_device(vgg16_fc7(self.vgg, pixels))
+
+    def _encode_finalize(self, raw) -> list[np.ndarray]:
+        n, feats = raw
+        return list(feats[:n].cpu().numpy())   # waits for the device here
+
     # --- request side ---
 
     def caption_features(self, feats: Sequence[np.ndarray]) -> list[str]:
@@ -147,6 +192,29 @@ class CaptionService:
         return self._await_all(
             [self._rows_batcher.submit(int(r)) for r in rows])
 
+    def caption_images(self, images: Sequence[np.ndarray]) -> list[str]:
+        """(224,224,3) uint8 arrays -> captions (encode stage + decode)."""
+        if self._encode is None:
+            raise RuntimeError("service has no encoder (pass vgg)")
+        feat_futs = [self._encode.submit(np.asarray(img, np.uint8))
+                     for img in images]
+        # encoder output is already L1-normalized (see _encode_fn)
+        return self._submit_decode(self._await_all(feat_futs))
+
+    def caption_image_bytes(self, blobs: Sequence[bytes]) -> list[str]:
+        """Raw encoded image bytes (JPEG/PNG) -> captions, decoded
+        through :func:`lrcn_tpu_torch.data.images.load_blobs` (PIL)."""
+        from lrcn_tpu_torch.data.images import load_blobs
+
+        images, ok = load_blobs(blobs)
+        bad = np.flatnonzero(~ok)
+        if bad.size:
+            raise ValueError(
+                f"could not decode image bytes "
+                f"(blob{'s' if bad.size > 1 else ''} "
+                f"{', '.join(str(int(i)) for i in bad)})")
+        return self.caption_images(list(images))
+
     def _await_all(self, futs: list, timeout_s: float | None = None
                    ) -> list:
         """Wait for every future; on timeout CANCEL the not-yet-batched
@@ -164,7 +232,8 @@ class CaptionService:
     def warmup(self, timeout_s: float = 600.0) -> None:
         """Run every serving path once before taking traffic: this builds
         the kernels and warms cuBLAS and the caching allocator at the
-        largest burst shape.  ``timeout_s`` covers the first build."""
+        largest burst shape and at the encoder's batch.  ``timeout_s``
+        covers the first build."""
         dim = self.cfg.cnn_feature_dim
         full = self.decode_batch * self.MAX_DECODE_GROUPS
         self._await_all([self._decode.submit(np.zeros(dim, np.float32))],
@@ -175,14 +244,24 @@ class CaptionService:
             self._await_all([self._rows_batcher.submit(0)],
                             timeout_s=timeout_s)
             self._decode_finalize(self._decode_rows_grouped([0] * full))
+        if self._encode is not None:
+            feat = self._await_all(
+                [self._encode.submit(np.zeros((CROP, CROP, 3), np.uint8))],
+                timeout_s=timeout_s)[0]
+            self._await_all([self._decode.submit(feat)],
+                            timeout_s=timeout_s)
 
     def stats(self) -> dict:
         out = {"decode": self._decode.stats.snapshot()}
         if self._rows_batcher is not None:
             out["decode_ids"] = self._rows_batcher.stats.snapshot()
+        if self._encode is not None:
+            out["encode"] = self._encode.stats.snapshot()
         return out
 
     def close(self) -> None:
         self._decode.close()
         if self._rows_batcher is not None:
             self._rows_batcher.close()
+        if self._encode is not None:
+            self._encode.close()

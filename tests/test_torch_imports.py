@@ -1,7 +1,9 @@
-"""The port loads nothing of JAX or of ``lrcn_tpu``: the machine with the
-card has no JAX.  Checked in a fresh interpreter, since this test process
-imports JAX (tests/conftest.py)."""
+"""The port loads nothing of JAX or of ``lrcn_tpu``, and nothing of PIL
+when it is imported: the machine with the card has neither JAX nor PIL.
+Checked in a fresh interpreter, since this test process imports JAX
+(tests/conftest.py).  Importing needs no ``nvcc`` and no GPU either."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -18,7 +20,11 @@ SLICE_MODULES = [
     "lrcn_tpu_torch.ops.kernels.build",
     "lrcn_tpu_torch.ops.kernels.lstm_step",
     "lrcn_tpu_torch.ops.kernels.topk_lse",
+    "lrcn_tpu_torch.ops.kernels.conv3x3",
     "lrcn_tpu_torch.models.lrcn",
+    "lrcn_tpu_torch.models.vgg",
+    "lrcn_tpu_torch.data.images",
+    "lrcn_tpu_torch.train.joint",
     "lrcn_tpu_torch.decode.beam",
     "lrcn_tpu_torch.decode.writer",
     "lrcn_tpu_torch.data.feature_store",
@@ -34,16 +40,37 @@ def _run(code: str) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=120)
 
 
-def test_port_loads_no_jax_and_no_lrcn_tpu():
-    code = (
+def _imports_nothing_forbidden(modules: list[str]) -> str:
+    """Code that imports ``modules`` and fails if JAX, ``lrcn_tpu`` or PIL
+    was loaded."""
+    return (
         "import importlib, sys\n"
-        f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'lrcn_tpu.'))\n"
-        "             or m == 'lrcn_tpu')\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'lrcn_tpu',\n"
+        "             'PIL') or m.startswith(('jax.', 'jaxlib',\n"
+        "                                     'lrcn_tpu.', 'PIL.')))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
-    proc = _run(code)
+
+
+def test_port_loads_no_jax_and_no_lrcn_tpu():
+    proc = _run(_imports_nothing_forbidden(SLICE_MODULES))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_no_jax_and_no_pil():
+    """Every module that chip_smoke.py imports, at top level or inside its
+    phases, loads nothing of JAX, ``lrcn_tpu`` or PIL."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    modules = sorted({alias.name for node in ast.walk(tree)
+                      if isinstance(node, ast.Import)
+                      for alias in node.names}
+                     | {node.module for node in ast.walk(tree)
+                        if isinstance(node, ast.ImportFrom)
+                        and node.level == 0 and node.module != "__future__"})
+    assert "lrcn_tpu_torch.models.vgg" in modules
+    proc = _run(_imports_nothing_forbidden(modules + ["chip_smoke"]))
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -1,8 +1,10 @@
 """The port's serving slice against the JAX package, on the CPU: checkpoint
-and feature-store files cross between the packages, and the port's
-``CaptionService`` and ``generate_captions`` give the JAX package's
-captions in f32."""
+(decoder-only and joint) and feature-store files cross between the
+packages, and the port's ``CaptionService`` (by id, by features, by image)
+and ``generate_captions`` give the JAX package's captions in f32."""
 
+import functools
+import io
 import threading
 
 import jax
@@ -16,6 +18,8 @@ from lrcn_tpu.core.vocab import Vocab
 from lrcn_tpu.data.feature_store import FeatureStore
 from lrcn_tpu.decode.writer import generate_captions as jax_generate
 from lrcn_tpu.models import lrcn as jax_lrcn
+from lrcn_tpu.models import vgg as jax_vgg
+from lrcn_tpu.models.joint import JointParams
 from lrcn_tpu.serve.service import CaptionService as JaxCaptionService
 from lrcn_tpu.train.checkpoint import save_checkpoint
 from lrcn_tpu_torch.data.feature_store import FeatureStore as TorchStore
@@ -61,6 +65,7 @@ def test_jax_checkpoint_loads_in_port(tiny):
     bf16 = load_checkpoint(str(root / "ckpt"), CPU, torch.bfloat16)
     assert bf16["decoder"].lstm2_w.dtype == torch.bfloat16
     assert bf16["decoder"].embedding.dtype == torch.float32
+    assert ck["vgg"] is None and ck["average_image"] is None
 
 
 def test_incomplete_checkpoint_is_refused(tmp_path):
@@ -162,3 +167,137 @@ def test_generate_captions_lines_match_jax_writer(tiny, beam_width,
                             TorchStore.load(str(root / "store")), ids,
                             device=CPU, **kw)
     assert "\n".join(got).encode() == "\n".join(ref).encode()
+
+
+# --- joint (CNN + decoder) checkpoints and the encoder stage ---
+
+
+@pytest.fixture(scope="module")
+def tiny_joint(tmp_path_factory):
+    """A JAX-written f32 joint checkpoint (``JointParams``, the layout of
+    the JAX joint trainer: ``cnn/...``, ``decoder/...`` and
+    ``average_image.npy``) with the tiny config of tests/test_serve.py and
+    a width-scaled VGG (8 channels, fc width 16)."""
+    cfg = LRCNConfig(hidden=(16, 16), embed=12, vocab_size=20,
+                     cnn_feature_dim=16, compute_dtype="float32")
+    vocab = Vocab([f"w{i}" for i in range(cfg.vocab_size - 3)])
+    decoder = jax_lrcn.init_params(jax.random.PRNGKey(0), cfg)
+    # jitted: one compile instead of one per layer shape
+    cnn = jax.jit(functools.partial(
+        jax_vgg.init_vgg_params, width_multiplier=0.05,
+        fc_dim=cfg.cnn_feature_dim))(jax.random.PRNGKey(1))
+    rng = np.random.default_rng(8)
+    cnn = {name: {"w": np.asarray(layer["w"]),
+                  "b": (rng.standard_normal(layer["b"].shape) * 0.1
+                        ).astype(np.float32)}
+           for name, layer in cnn.items()}
+    avg = rng.uniform(90, 130, (224, 224, 3)).astype(np.float32)
+    root = tmp_path_factory.mktemp("jax_joint")
+    save_checkpoint(str(root / "ckpt"), JointParams(cnn=cnn, decoder=decoder),
+                    vocab, cfg, step=3)
+    np.save(str(root / "ckpt" / "average_image.npy"), avg)
+    return cfg, vocab, decoder, cnn, avg, root / "ckpt"
+
+
+@pytest.mark.parametrize("with_average_image", [True, False])
+def test_jax_joint_checkpoint_loads_in_port(tiny_joint, with_average_image):
+    """The decoder comes from ``decoder/``, the encoder from ``cnn/``, the
+    mean image from ``average_image.npy`` (zeros without one): the
+    counterpart of ``lrcn_tpu/cli.py:_joint_encoder``."""
+    cfg, vocab, decoder, cnn, avg, path = tiny_joint
+    if not with_average_image:
+        import shutil
+        path = shutil.copytree(path, path.parent / "no_avg")
+        (path / "average_image.npy").unlink()
+    ck = load_checkpoint(str(path), CPU)
+    assert ck["vocab"].words == vocab.words and ck["step"] == 3
+    for key in ("lstm1/w", "lstm2/b", "w_cnn", "embedding", "w_out"):
+        module, _, leaf = key.rpartition("/")
+        want = decoder[module][leaf] if module else decoder[leaf]
+        got = getattr(ck["decoder"], key.replace("/", "_"))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    vgg = ck["vgg"]
+    assert vgg is not None and vgg.compute_dtype == torch.float32
+    for name, layer in cnn.items():
+        w = np.asarray(layer["w"])
+        if name == "fc6":
+            w = w.reshape(-1, w.shape[-1])
+        np.testing.assert_array_equal(getattr(vgg, f"{name}_w").numpy(), w)
+        np.testing.assert_array_equal(getattr(vgg, f"{name}_b").numpy(),
+                                      layer["b"])
+    want_avg = avg if with_average_image else np.zeros_like(avg)
+    np.testing.assert_array_equal(ck["average_image"], want_avg)
+    bf16 = load_checkpoint(str(path), CPU, torch.bfloat16)["vgg"]
+    assert bf16.conv1_1_w.dtype == torch.bfloat16
+    assert bf16.conv1_1_b.dtype == torch.float32
+
+
+def _image_services(tiny_joint, **kw):
+    cfg, vocab, decoder, cnn, avg, path = tiny_joint
+    ck = load_checkpoint(str(path), CPU)
+    ported = CaptionService(cfg, ck["decoder"], ck["vocab"], device=CPU,
+                            vgg=ck["vgg"], average_image=ck["average_image"],
+                            **kw)
+    ref = JaxCaptionService(cfg, decoder, vocab, vgg_params=cnn,
+                            average_image=avg, compute_dtype=jnp.float32,
+                            **kw)
+    return ported, ref
+
+
+def _uint8_images(seed, n):
+    rng = np.random.default_rng(seed)
+    return list(rng.integers(0, 256, (n, 224, 224, 3)).astype(np.uint8))
+
+
+def test_caption_images_match_jax_service(tiny_joint):
+    """Five images through an encode batch of 2 (padded last batch) and a
+    decode batch of 4: captions equal to the JAX service's at f32."""
+    ported, ref = _image_services(tiny_joint, beam_width=2, max_words=8,
+                                  decode_batch=4, encode_batch=2)
+    try:
+        images = _uint8_images(21, 5)
+        got = ported.caption_images(images)
+        assert got == ref.caption_images(images)
+        assert all(line.endswith(" .") or line == "." for line in got)
+        assert ported.stats()["encode"]["requests"] == 5
+        assert ported.caption_images([]) == []
+    finally:
+        ported.close()
+        ref.close()
+
+
+def test_caption_image_bytes_match_jax_service(tiny_joint):
+    from PIL import Image
+
+    ported, ref = _image_services(tiny_joint, beam_width=3, max_words=8,
+                                  decode_batch=4, encode_batch=2)
+    try:
+        blobs = []
+        for i, img in enumerate(_uint8_images(22, 3)):
+            buf = io.BytesIO()
+            Image.fromarray(img[: 200 + 20 * i]).save(buf, format="PNG")
+            blobs.append(buf.getvalue())
+        ported.warmup()
+        assert ported.caption_image_bytes(blobs) == \
+            ref.caption_image_bytes(blobs)
+        with pytest.raises(ValueError, match="blob 1"):
+            ported.caption_image_bytes([blobs[0], b"not an image"])
+    finally:
+        ported.close()
+        ref.close()
+
+
+def test_service_without_encoder_refuses_images(tiny, tiny_joint):
+    cfg, vocab, params, store, root = tiny
+    ck = load_checkpoint(str(root / "ckpt"), CPU)
+    svc = CaptionService(cfg, ck["decoder"], ck["vocab"], device=CPU)
+    try:
+        with pytest.raises(RuntimeError, match="no encoder"):
+            svc.caption_images(_uint8_images(0, 1))
+        assert "encode" not in svc.stats()
+    finally:
+        svc.close()
+    joint = load_checkpoint(str(tiny_joint[5]), CPU)
+    with pytest.raises(ValueError, match="features"):
+        CaptionService(cfg, ck["decoder"], ck["vocab"], device=CPU,
+                       vgg=joint["vgg"])    # fc7 width 16, decoder's 8
