@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port's caption-serving paths once on one GPU.
 
-    python3 chip_smoke.py        # from the repository root, one sm_90 card
+    python3 chip_smoke.py              # from the repository root, one sm_90 card
+    python3 chip_smoke.py --profile    # instead: profile the 16x256 decode
+                                       # and fc7 extraction (torch.profiler)
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
@@ -10,32 +12,46 @@ exits nonzero:
 2. build: the kernels compile from ``lrcn_tpu_torch/csrc/``;
 3. fused LSTM step kernel against its plain version at the decode step's
    shapes (768 rows, X = H = 1000, both layers' weights) in bf16 and f32,
-   plus a ragged shape, with median CUDA-event times;
+   bf16 at 3072 and 12288 rows (a 4-group burst, the 16x256 decode), plus a
+   ragged shape, with median CUDA-event times of the kernel, the plain
+   version and ``torch.mm`` on a pre-concatenated [x, h] (the GEMM alone);
+   each case must take its route (bf16 aligned: wgmma, ragged: wmma, f32:
+   fma), read from the per-route launch counters; the host time of one
+   launch of the wgmma route (TMA descriptors encoded) and the wmma route;
 4. top-k + log-sum-exp kernel against its plain version at (768, 8800)
    k=3, (256, 8800) k=1 and a tie-heavy input: values and indices exact;
 5. service: a JAX-format checkpoint at the reference width (random weights
    from a seed, an 8800-word synthetic vocab) and a 2048-row feature store
    are written, loaded on the card and served, beam 3, max_words 20,
    decode_batch 256, from several request threads; the kernels' launch
-   counts must match the searches run, and in f32 (TF32 off) the kernel
-   path's captions must agree with the plain path's;
-6. throughput: one 16x256 beam-3 decode in bf16;
+   counts must match the searches run, every LSTM launch on the wgmma
+   route, and in f32 (TF32 off) the kernel path's captions must agree with
+   the plain path's;
+6. throughput: one 16x256 beam-3 decode in bf16, its LSTM launches all on
+   the wgmma route;
 7. conv3x3 kernel against its plain version at the 9 distinct VGG-16 layer
    shapes at B=8 in bf16, 3 of them in f32, and a ragged 2x13x17x5->7
    shape with and without ReLU, with median CUDA-event times of the
-   kernel, the plain version and cuDNN's own bf16 conv;
+   kernel, the plain version and cuDNN's own conv in the same dtype, and
+   the 13-conv stack sums of the three; the 12 aligned bf16 convs must take
+   the wgmma route, conv1_1 and the ragged shape the scalar route, f32 the
+   fma route; the host time of one launch of the wgmma and scalar routes;
 8. image service: a JAX-format joint checkpoint (``cnn/`` and
    ``decoder/`` keys, ``average_image.npy``) with full-width random VGG-16
    weights is written, loaded on the card and served by image from
    several request threads; the conv kernel must launch 13 times per
-   encoder batch and the decoder kernels once per search step; in f32 (TF32
-   off) the kernel path's fc7 and captions must agree with the plain
-   path's;
+   encoder batch (12 on the wgmma route, 1 on the scalar route) and the
+   decoder kernels once per search step; in f32 (TF32 off) the kernel
+   path's fc7 and captions must agree with the plain path's;
 9. fc7 throughput: ``normalize_and_fc7`` over 16x256 uint8 images in bf16,
-   kernel path and plain path.
+   kernel path (its conv launches 12:1 wgmma to scalar) and plain path.
 
-The line before the last is one JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.  The script imports
+The line before the last is one JSON object describing each kernel, with
+the time of the kernel, its plain version and a library call at the
+main path's shape, the least time the card could take for that work
+(``bound_ms``: bytes over 3.35 TB/s or operations over the peak rate of
+their type, whichever is larger), and its launches on the main path, in
+all and by route; the last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or PIL, and exits nonzero without printing a result when
 no CUDA device is present.
 """
@@ -95,10 +111,49 @@ FC7_RTOL = 1e-4
 #  boundary, and that ulp propagates through 13 layers -> 3e-2
 FC7_BF16_RTOL = 3e-2
 
+# the H100 SXM's published peaks (dense), for bound_ms
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = {"bf16": 989e12, "f32": 67e12}
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time (ms) for moving ``nbytes`` and doing ``ops`` of
+    ``kind`` on the card, and which of the two bounds it."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def host_us(launch, n: int = 200) -> float:
+    """Host microseconds per call of ``launch``, which enqueues a kernel:
+    the wrapper-free cost of a C entry point, TMA encoding included."""
+    launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        launch()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def route_delta(fn, before: dict) -> dict:
+    """Launches by route since ``before`` (a copy of the counters)."""
+    return {r: fn.launches_by_route[r] - before[r] for r in before
+            if fn.launches_by_route[r] != before[r]}
+
+
+def reset_counts(*fns) -> None:
+    """Zero the launch counters, in all and by route, of these wrappers."""
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
@@ -183,28 +238,52 @@ def phase_build() -> None:
           f"{seconds:.1f} s; ptxas: {' | '.join(sorted(set(usage)))}")
 
 
+def lstm_bound(rows: int, x_dim: int, h_dim: int, w_bytes: int
+               ) -> tuple[float, str]:
+    """x, h, c read, W and b read, h' and c' written once; 2 flops per
+    multiply-add of [x, h] @ W (the cell update is negligible)."""
+    nbytes = (4 * rows * (x_dim + 2 * h_dim)
+              + w_bytes * (x_dim + h_dim) * 4 * h_dim + 4 * 4 * h_dim
+              + 2 * 4 * rows * h_dim)
+    flops = 2 * rows * (x_dim + h_dim) * 4 * h_dim
+    return bound(nbytes, flops, "bf16" if w_bytes == 2 else "f32")
+
+
 def phase_lstm(tree, rng) -> dict:
-    from lrcn_tpu_torch.ops.kernels import (fused_lstm_step,
+    from lrcn_tpu_torch.ops.kernels import (build, fused_lstm_step,
                                             lstm_step_reference)
+    from lrcn_tpu_torch.ops.kernels.lstm_step import ROUTES
 
     rows = DECODE_BATCH * BEAM
     cases = [(f"layer{n} {dtype}".replace("torch.", ""),
-              tree[f"lstm{n}/w"], tree[f"lstm{n}/b"], rows, dtype)
+              tree[f"lstm{n}/w"], tree[f"lstm{n}/b"], rows, dtype, rng)
              for dtype in (torch.bfloat16, torch.float32) for n in (1, 2)]
+    # the burst and 16x256 sizes draw from their own stream, so that the
+    # later phases' inputs do not depend on them
+    big = np.random.default_rng(SEED + 1)
+    cases += [(f"layer1 bfloat16 x{r // rows}", tree["lstm1/w"],
+               tree["lstm1/b"], r, torch.bfloat16, big)
+              for r in (4 * rows, 16 * rows)]
     ragged_w = (rng.standard_normal((37 + 70, 280)) * 0.1).astype(np.float32)
     cases += [(f"ragged 100x37x70 {dtype}".replace("torch.", ""), ragged_w,
-               np.zeros(280, np.float32), 100, dtype)
+               np.zeros(280, np.float32), 100, dtype, rng)
               for dtype in (torch.bfloat16, torch.float32)]
     worst, times = 0.0, {}
-    for label, w_np, b_np, b_dim, dtype in cases:
+    for label, w_np, b_np, b_dim, dtype, gen in cases:
         h_dim = b_np.shape[0] // 4
         x_dim = w_np.shape[0] - h_dim
         w = torch.from_numpy(w_np).cuda().to(dtype).contiguous()
         b = torch.from_numpy(b_np).cuda()
-        h, c, x = (torch.from_numpy(rng.standard_normal(s).astype(
+        h, c, x = (torch.from_numpy(gen.standard_normal(s).astype(
             np.float32)).cuda() for s in ((b_dim, h_dim), (b_dim, h_dim),
                                           (b_dim, x_dim)))
+        before = dict(fused_lstm_step.launches_by_route)
         h_k, c_k = fused_lstm_step(w, b, h, c, x)
+        routes = route_delta(fused_lstm_step, before)
+        want = ("fma" if dtype == torch.float32
+                else "wmma" if label.startswith("ragged") else "wgmma")
+        check(routes == {want: 1}, f"lstm_step {label}: routes {routes}, "
+                                   f"want {want}")
         h_p, c_p = lstm_step_reference(w, b, h, c, x)
         torch.cuda.synchronize()
         err = max((h_k - h_p).abs().max().item(),
@@ -212,17 +291,48 @@ def phase_lstm(tree, rng) -> dict:
         check(err <= LSTM_ATOL, f"lstm_step {label}: max |err| {err} > "
                                 f"{LSTM_ATOL}")
         worst = max(worst, err)
-        ms = median_ms(lambda: fused_lstm_step(w, b, h, c, x))
-        plain = median_ms(lambda: lstm_step_reference(w, b, h, c, x))
-        times[label] = (ms, plain)
+        reps = dict(reps=7, inner=3) if b_dim > rows else {}
+        ms = median_ms(lambda: fused_lstm_step(w, b, h, c, x), **reps)
+        plain = median_ms(lambda: lstm_step_reference(w, b, h, c, x), **reps)
+        # the library yardstick: the GEMM alone on a pre-concatenated [x, h]
+        xh = torch.cat([x, h], 1).to(dtype)
+        if dtype == torch.bfloat16:
+            lib = median_ms(lambda: torch.mm(xh, w, out_dtype=torch.float32),
+                            **reps)
+        else:
+            lib = median_ms(lambda: torch.mm(xh, w), **reps)
+        bnd, by = lstm_bound(b_dim, x_dim, h_dim, w.element_size())
+        times[label] = (ms, plain, lib, bnd, by)
         print(f"[3 lstm_step] {label}: rows={b_dim} X={x_dim} H={h_dim} "
-              f"max|err|={err:.3g} (tol {LSTM_ATOL}) kernel {ms:.4f} ms "
-              f"plain {plain:.4f} ms")
-    ms, plain = times["layer1 bfloat16"]
+              f"route {want} max|err|={err:.3g} (tol {LSTM_ATOL}) kernel "
+              f"{ms:.4f} ms plain {plain:.4f} ms torch.mm {lib:.4f} ms "
+              f"bound {bnd:.4f} ms ({by}); "
+              f"{2 * b_dim * (x_dim + h_dim) * 4 * h_dim / ms / 1e9:.1f} "
+              f"TFLOP/s")
+        del w, h, c, x, xh, h_k, c_k, h_p, c_p
+    # the host cost of a launch: the wgmma route encodes four TMA maps
+    lib_c = build.load()
+    w = torch.from_numpy(tree["lstm1/w"]).cuda().to(torch.bfloat16)
+    b = torch.from_numpy(tree["lstm1/b"]).cuda()
+    x, h, c, h_o, c_o = (torch.zeros((rows, HIDDEN[0]), device="cuda")
+                         for _ in range(5))
+    stream = torch.cuda.current_stream().cuda_stream
+    host = {route: host_us(lambda: build.check(lib_c.lrcn_lstm_step(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
+        h_o.data_ptr(), c_o.data_ptr(), rows, HIDDEN[0], HIDDEN[0],
+        ROUTES[route], stream), route)) for route in ("wgmma", "wmma")}
+    print(f"[3 lstm_step] host time per C launch at {rows} rows: wgmma "
+          f"{host['wgmma']:.2f} us (4 TMA maps encoded), wmma "
+          f"{host['wmma']:.2f} us")
+    ms, plain, lib, bnd, by = times["layer1 bfloat16"]
     return {"name": "fused_lstm_step", "route": "cuda",
             "source": "lrcn_tpu_torch/csrc/lstm_step.cu",
             "replaces": "lrcn_tpu/ops/pallas/lstm_step.py:63",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+            "shape": f"rows={rows} X=H={HIDDEN[0]} bf16",
+            "kernel_route": "wgmma", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "library": "torch.mm",
+            "bound_ms": bnd, "bound_by": by,
+            "host_us": host["wgmma"]}
 
 
 def phase_topk(rng) -> dict:
@@ -249,15 +359,24 @@ def phase_topk(rng) -> dict:
         worst = max(worst, err)
         ms = median_ms(lambda: topk_logsumexp(x, k))
         plain = median_ms(lambda: topk_logsumexp_reference(x, k))
-        times[label] = (ms, plain)
+        lib = median_ms(lambda: torch.topk(x, k))
+        # logits read once, values, indices and lse written once; about 4
+        # f32 operations an element (max, subtract, exp, add)
+        r, v = x.shape
+        bnd, by = bound(4 * r * v + 8 * r * k + 4 * r, 4 * r * v, "f32")
+        times[label] = (ms, plain, lib, bnd, by)
         print(f"[4 topk_logsumexp] {label}: {tuple(x.shape)} k={k} vals/idx "
               f"exact, lse max|err|={err:.3g} (tol {LSE_ATOL}) kernel "
-              f"{ms:.4f} ms plain {plain:.4f} ms")
-    ms, plain = times["beam"]
+              f"{ms:.4f} ms plain {plain:.4f} ms torch.topk {lib:.4f} ms "
+              f"bound {bnd:.4f} ms ({by})")
+    ms, plain, lib, bnd, by = times["beam"]
     return {"name": "topk_logsumexp", "route": "cuda",
             "source": "lrcn_tpu_torch/csrc/topk_lse.cu",
             "replaces": "lrcn_tpu/ops/pallas/topk_lse.py:62",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+            "shape": f"({rows}, {VOCAB}) k={BEAM}", "kernel_route": "cuda",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "library": "torch.topk", "bound_ms": bnd,
+            "bound_by": by}
 
 
 def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
@@ -303,14 +422,14 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
     # the main path: every count starts at 0 here (warmup's batches were
     # recorded when their requests returned, so they are counted before)
     batches_before = sum(s["batches"] for s in svc.stats().values())
-    fused_lstm_step.launches = 0
-    topk_logsumexp.launches = 0
+    reset_counts(fused_lstm_step, topk_logsumexp)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(requests)) as pool:
         answers = list(pool.map(answer, requests))
     serve_s = time.perf_counter() - t0
     launches = {"fused_lstm_step": fused_lstm_step.launches,
                 "topk_logsumexp": topk_logsumexp.launches}
+    by_route = {"fused_lstm_step": dict(fused_lstm_step.launches_by_route)}
     svc.close()     # joins the batcher threads: their stats are final
     searches = (sum(s["batches"] for s in svc.stats().values())
                 - batches_before)
@@ -329,10 +448,12 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
     check(launches["fused_lstm_step"] == 2 * steps * searches,
           f"fused_lstm_step launched {launches['fused_lstm_step']} times in "
           f"{searches} searches of {steps} steps")
+    check(by_route["fused_lstm_step"]["wgmma"] == launches["fused_lstm_step"],
+          f"fused_lstm_step routes {by_route['fused_lstm_step']}")
     print(f"[5 service] warmup {warm_s:.2f} s; {n_captions} captions for "
           f"{len(requests)} concurrent requests in {serve_s:.3f} s, "
-          f"{searches} searches; launches {launches}; e.g. "
-          f"{answers[0][0][:60]!r}")
+          f"{searches} searches; launches {launches}, LSTM by route "
+          f"{by_route['fused_lstm_step']}; e.g. {answers[0][0][:60]!r}")
 
     # kernel path against plain path in f32, TF32 off
     dec32 = load_checkpoint(os.path.join(WORK, "ckpt"), device="cuda",
@@ -355,12 +476,13 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
     print(f"[5 service f32] kernel vs plain path: {len(cap_k) - len(differ)}"
           f"/{len(cap_k)} captions equal (need {CAPTION_AGREEMENT}); max "
           f"score gap {gaps.max():.3g}; {distinct} distinct captions")
-    return launches, torch.from_numpy(feats)
+    return launches, by_route, torch.from_numpy(feats)
 
 
 def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
                      ) -> float:
     from lrcn_tpu_torch.decode.beam import beam_search_grouped
+    from lrcn_tpu_torch.ops.kernels import fused_lstm_step
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
 
     decoder = load_checkpoint(decoder_path, device="cuda")["decoder"]
@@ -372,23 +494,37 @@ def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
     run()
     torch.cuda.synchronize()
     iters = 3
+    reset_counts(fused_lstm_step)
     t0 = time.perf_counter()
     for _ in range(iters):
         tokens, _ = run()
     tokens.cpu()
     dt = time.perf_counter() - t0
     rate = iters * groups * DECODE_BATCH / dt
+    routes = dict(fused_lstm_step.launches_by_route)
+    check(fused_lstm_step.launches > 0
+          and routes["wgmma"] == fused_lstm_step.launches,
+          f"16x{DECODE_BATCH} decode: LSTM launches by route {routes}")
     print(f"[6 throughput] beam-{BEAM} max_words={MAX_WORDS} "
           f"{groups}x{DECODE_BATCH} bf16: {rate:.1f} captions/s "
-          f"({dt / iters * 1e3:.1f} ms per decode) on {smi}")
+          f"({dt / iters * 1e3:.1f} ms per decode) on {smi}; LSTM launches "
+          f"by route {routes}")
     return rate
+
+
+def conv_bound(b_dim, h, w_dim, c, f, elem: int) -> tuple[float, str]:
+    """x, w and b read, y written once; 2 flops per multiply-add."""
+    nbytes = elem * (b_dim * h * w_dim * (c + f) + 9 * c * f) + 4 * f
+    flops = 2 * b_dim * h * w_dim * 9 * c * f
+    return bound(nbytes, flops, "bf16" if elem == 2 else "f32")
 
 
 def phase_conv() -> dict:
     import torch.nn.functional as F
 
-    from lrcn_tpu_torch.ops.kernels import (conv3x3_relu_reference,
+    from lrcn_tpu_torch.ops.kernels import (build, conv3x3_relu_reference,
                                             fused_conv3x3_relu)
+    from lrcn_tpu_torch.ops.kernels.conv3x3 import ROUTES
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -408,7 +544,13 @@ def phase_conv() -> dict:
         x = x.to(dtype)
         w = (randn(3, 3, c, f) * (2.0 / (9 * c)) ** 0.5).to(dtype)
         b = randn(f) * 0.1
+        before = dict(fused_conv3x3_relu.launches_by_route)
         y_k = fused_conv3x3_relu(x, w, b, apply_relu=relu)
+        routes = route_delta(fused_conv3x3_relu, before)
+        want = ("fma" if dtype == torch.float32
+                else "wgmma" if c % 64 == 0 and f % 64 == 0 else "scalar")
+        check(routes == {want: 1}, f"conv3x3 {label}: routes {routes}, "
+                                   f"want {want}")
         y_p = conv3x3_relu_reference(x, w, b, dtype, apply_relu=relu)
         torch.cuda.synchronize()
         err = (y_k.float() - y_p.float()).abs().max().item()
@@ -429,23 +571,47 @@ def phase_conv() -> dict:
             memory_format=torch.channels_last)
         bc = b.to(dtype)
         cudnn = median_ms(lambda: torch.relu(F.conv2d(xc, wc, bc, padding=1)))
-        times[label] = (ms, plain)
+        bnd, by = conv_bound(b_dim, h, w_dim, c, f, x.element_size())
+        times[label] = (ms, plain, cudnn, bnd, by)
         flops = 2 * b_dim * h * w_dim * 9 * c * f
-        print(f"[7 conv3x3] {label}: B={b_dim} max|err|={err:.3g} (tol "
-              f"{CONV_RTOL[dtype]:.3g} x max|y| {scale:.3g}) kernel "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
-              f"{plain:.4f} ms cudnn {cudnn:.4f} ms")
+        print(f"[7 conv3x3] {label}: B={b_dim} route {want} max|err|="
+              f"{err:.3g} (tol {CONV_RTOL[dtype]:.3g} x max|y| {scale:.3g}) "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
+              f"{plain:.4f} ms cudnn {cudnn:.4f} ms bound {bnd:.4f} ms "
+              f"({by})")
         del x, w, y_k, y_p, xc, wc
     stack = [sum(n * times[f"{h}x{h}x{c}->{f} bfloat16"][i]
-                 for h, c, f, n in VGG_CONVS) for i in (0, 1)]
+                 for h, c, f, n in VGG_CONVS) for i in range(4)]
     print(f"[7 conv3x3] 13-conv stack at B={CONV_BATCH} bf16: kernel "
-          f"{stack[0]:.3f} ms, plain {stack[1]:.3f} ms")
+          f"{stack[0]:.4f} ms, plain {stack[1]:.4f} ms, cudnn "
+          f"{stack[2]:.4f} ms, bound {stack[3]:.4f} ms")
+    # the host cost of a launch: the wgmma route encodes two TMA maps
+    lib_c = build.load()
+    h, c, f = VGG_CONVS[-1][:3]
+    x = torch.zeros((CONV_BATCH, h, h, c), device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, c, f), device="cuda", dtype=torch.bfloat16)
+    b, y = torch.zeros(f, device="cuda"), torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    host = {route: host_us(lambda: build.check(lib_c.lrcn_conv3x3(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), CONV_BATCH,
+        h, h, c, f, 1, ROUTES[route], stream), route))
+        for route in ("wgmma", "scalar")}
+    print(f"[7 conv3x3] host time per C launch at {h}x{h}x{c}->{f}: wgmma "
+          f"{host['wgmma']:.2f} us (2 TMA maps encoded), scalar "
+          f"{host['scalar']:.2f} us")
     h, c, f = REPORT_CONV
-    ms, plain = times[f"{h}x{h}x{c}->{f} bfloat16"]
+    ms, plain, cudnn, bnd, by = times[f"{h}x{h}x{c}->{f} bfloat16"]
     return {"name": "fused_conv3x3_relu", "route": "cuda",
             "source": "lrcn_tpu_torch/csrc/conv3x3.cu",
             "replaces": "lrcn_tpu/ops/pallas/conv3x3.py:61",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+            "shape": f"B={CONV_BATCH} {h}x{h}x{c}->{f} bf16",
+            "kernel_route": "wgmma", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain, "library_ms": cudnn,
+            "library": "F.conv2d (cuDNN) + relu", "bound_ms": bnd,
+            "bound_by": by, "host_us": host["wgmma"],
+            "stack_ms": stack[0], "stack_library_ms": stack[2],
+            "stack_bound_ms": stack[3]}
 
 
 def random_vgg(rng: np.random.Generator) -> dict[str, np.ndarray]:
@@ -508,9 +674,7 @@ def phase_images(tree, rng) -> dict:
     # the image path: every count starts at 0 here (warmup's batches were
     # recorded when their requests returned, so they are counted before)
     before = {k: s["batches"] for k, s in svc.stats().items()}
-    fused_conv3x3_relu.launches = 0
-    fused_lstm_step.launches = 0
-    topk_logsumexp.launches = 0
+    reset_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(requests)) as pool:
         answers = list(pool.map(svc.caption_images, requests))
@@ -518,6 +682,9 @@ def phase_images(tree, rng) -> dict:
     launches = {"fused_conv3x3_relu": fused_conv3x3_relu.launches,
                 "fused_lstm_step": fused_lstm_step.launches,
                 "topk_logsumexp": topk_logsumexp.launches}
+    by_route = {"fused_conv3x3_relu":
+                dict(fused_conv3x3_relu.launches_by_route),
+                "fused_lstm_step": dict(fused_lstm_step.launches_by_route)}
     svc.close()     # joins the batcher threads: their stats are final
     after = svc.stats()
     encodes = after["encode"]["batches"] - before["encode"]
@@ -536,10 +703,18 @@ def phase_images(tree, rng) -> dict:
     check(searches > 0 and launches["topk_logsumexp"] == steps * searches
           and launches["fused_lstm_step"] == 2 * steps * searches,
           f"decoder kernels launched {launches} in {searches} searches")
+    conv_routes = by_route["fused_conv3x3_relu"]
+    check(conv_routes["wgmma"] == 12 * encodes
+          and conv_routes["scalar"] == encodes,
+          f"conv routes {conv_routes} in {encodes} encoder batches: want 12 "
+          f"wgmma and 1 scalar (conv1_1) each")
+    check(by_route["fused_lstm_step"]["wgmma"] == launches["fused_lstm_step"],
+          f"LSTM routes {by_route['fused_lstm_step']}")
     print(f"[8 images] warmup {warm_s:.2f} s; {sum(sizes)} captions for "
           f"{len(requests)} concurrent image requests in {serve_s:.3f} s, "
           f"{encodes} encoder batches of {ENCODE_BATCH}, {searches} "
-          f"searches; launches {launches}; e.g. {answers[0][0][:60]!r}")
+          f"searches; launches {launches}, by route {by_route}; e.g. "
+          f"{answers[0][0][:60]!r}")
 
     # kernel path against plain path in f32, TF32 off
     del svc, ck
@@ -577,11 +752,12 @@ def phase_images(tree, rng) -> dict:
           f" {len(cap_k) - len(differ)}/{len(cap_k)} captions equal (need "
           f"{CAPTION_AGREEMENT}); max score gap {gaps.max():.3g}; "
           f"{len(set(cap_k))} distinct captions")
-    return launches
+    return launches, by_route
 
 
 def phase_fc7_throughput(rng, smi: str) -> float:
     from lrcn_tpu_torch.data.images import normalize_and_fc7
+    from lrcn_tpu_torch.ops.kernels import fused_conv3x3_relu
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
 
     ck = load_checkpoint(os.path.join(WORK, "joint"), device="cuda")
@@ -594,6 +770,7 @@ def phase_fc7_throughput(rng, smi: str) -> float:
         run = lambda: normalize_and_fc7(vgg, images, avg, use_kernels)
         run().sum().item()          # warm up
         iters = 2
+        reset_counts(fused_conv3x3_relu)
         t0 = time.perf_counter()
         for _ in range(iters):
             feats = run()
@@ -603,10 +780,16 @@ def phase_fc7_throughput(rng, smi: str) -> float:
               and bool(torch.isfinite(feats).all()), "fc7 not finite")
         rates[use_kernels] = iters * FC7_GROUPS * FC7_BATCH / dt
         fc7[use_kernels] = feats
+        routes = dict(fused_conv3x3_relu.launches_by_route)
+        batches = iters * FC7_GROUPS if use_kernels else 0
+        check(routes["wgmma"] == 12 * batches and routes["scalar"] == batches
+              and fused_conv3x3_relu.launches == 13 * batches,
+              f"fc7 {'kernel' if use_kernels else 'plain'} path: conv "
+              f"launches by route {routes} for {batches} batches")
         print(f"[9 fc7 throughput] {FC7_GROUPS}x{FC7_BATCH} uint8 images, "
               f"bf16, {'kernel' if use_kernels else 'plain'} path: "
               f"{rates[use_kernels]:.1f} images/s ({dt / iters * 1e3:.1f} "
-              f"ms per call) on {smi}")
+              f"ms per call) on {smi}; conv launches by route {routes}")
     err = (fc7[True] - fc7[False]).abs().max().item()
     scale = fc7[False].abs().max().item()
     check(err <= FC7_BF16_RTOL * scale, f"bf16 fc7 kernel vs plain: max "
@@ -616,6 +799,84 @@ def phase_fc7_throughput(rng, smi: str) -> float:
           f"{FC7_GROUPS * FC7_BATCH} images: max|err| {err:.3g} (tol "
           f"{FC7_BF16_RTOL} x max|fc7| {scale:.3g})")
     return rates[True]
+
+
+# kernel name fragment -> the row of the profile table it adds to
+PROFILE_GROUPS = [
+    ("lstm_step_wgmma", "fused LSTM step, wgmma route"),
+    ("lstm_step_kernel", "fused LSTM step, wmma/fma route"),
+    ("topk_lse", "top-k + log-sum-exp kernel"),
+    ("conv3x3_wgmma", "conv kernel, wgmma route (12 of 13 convs)"),
+    ("conv3x3_kernel", "conv kernel, scalar route (conv1_1)"),
+    ("gemm", "cuBLAS GEMMs"), ("nvjet", "cuBLAS GEMMs"),
+    ("reduce", "reductions (max pools, ...)"),
+    ("elementwise", "elementwise"), ("index", "gathers / index"),
+    ("gather", "gathers / index"), ("copy", "copies / casts")]
+
+
+def profile_window(label: str, run) -> None:
+    """Profile one call of ``run`` (after a warm-up): wall time, device
+    kernel time, idle share of the wall, and kernel time by group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:           # the union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(e.time_range.elapsed_us() for e in kernels)
+    groups: dict[str, list] = {}
+    for e in kernels:
+        key = next((g for frag, g in PROFILE_GROUPS
+                    if frag in e.name.lower()), "other")
+        acc = groups.setdefault(key, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+    print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device kernel "
+          f"time {total / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
+          f"of the wall {1 - busy / wall_us:.4f}, {len(kernels)} kernels")
+    for key, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] {label}:   {key}: {us / 1e3:.3f} ms in {n} "
+              f"launches, {us / total:.2%}")
+
+
+def profile_paths(smi: str) -> None:
+    """``--profile``: where the device time goes in one 16x256 beam-3
+    decode and one 16x256 fc7 extraction, bf16, random weights."""
+    from lrcn_tpu_torch.data.images import normalize_and_fc7
+    from lrcn_tpu_torch.decode.beam import beam_search_grouped
+    from lrcn_tpu_torch.models.lrcn import params_from_numpy
+    from lrcn_tpu_torch.models.vgg import vgg_params_from_numpy
+
+    rng = np.random.default_rng(SEED)
+    decoder = params_from_numpy(random_tree(rng), "cuda", torch.bfloat16)
+    raw = np.abs(rng.standard_normal((FC7_GROUPS * DECODE_BATCH, CNN_DIM)))
+    feats = torch.from_numpy((raw / raw.sum(1, keepdims=True)).astype(
+        np.float32)).view(FC7_GROUPS, DECODE_BATCH, -1).cuda().to(
+            torch.bfloat16)
+    profile_window(f"beam-{BEAM} decode {FC7_GROUPS}x{DECODE_BATCH} bf16 "
+                   f"on {smi}", lambda: beam_search_grouped(
+                       decoder, feats, beam_width=BEAM, max_words=MAX_WORDS))
+    del decoder, feats
+    vgg = vgg_params_from_numpy(random_vgg(rng), "cuda", torch.bfloat16)
+    avg = torch.full((224, 224, 3), 117.0, device="cuda")
+    for groups, batch in ((1, ENCODE_BATCH), (FC7_GROUPS, FC7_BATCH)):
+        images = torch.from_numpy(rng.integers(
+            0, 256, (groups, batch, 224, 224, 3), np.uint8)).cuda()
+        profile_window(f"fc7 {groups}x{batch} bf16 on {smi}",
+                       lambda: normalize_and_fc7(vgg, images, avg))
+        del images
 
 
 def main() -> None:
@@ -629,16 +890,22 @@ def main() -> None:
 
     name, smi = phase_card()
     phase_build()
+    if sys.argv[1:] == ["--profile"]:
+        profile_paths(smi)
+        return
     tree = random_tree(rng)
     kernels = [phase_lstm(tree, rng), phase_topk(rng)]
-    launches, feats = phase_service(tree, rng)
+    launches, by_route, feats = phase_service(tree, rng)
     phase_throughput(os.path.join(WORK, "ckpt"), feats, smi)
     kernels.append(phase_conv())
-    launches.update(fused_conv3x3_relu=phase_images(tree, rng)[
-        "fused_conv3x3_relu"])
+    image_launches, image_routes = phase_images(tree, rng)
+    launches["fused_conv3x3_relu"] = image_launches["fused_conv3x3_relu"]
+    by_route["fused_conv3x3_relu"] = image_routes["fused_conv3x3_relu"]
     phase_fc7_throughput(rng, smi)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        entry["launches_by_route"] = by_route.get(
+            entry["name"], {"cuda": entry["launches"]})
         check(entry["launches"] > 0, f"{entry['name']} never launched on "
                                      f"the main path")
     shutil.rmtree(WORK, ignore_errors=True)

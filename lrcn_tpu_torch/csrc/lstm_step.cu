@@ -17,22 +17,43 @@
 // bf16 weights, about 770 FLOP per weight byte.  That is above the H100's
 // ~295 FLOP/byte ridge, so with tensor cores the kernel is compute-bound;
 // every row tile re-reads the weights, which fit the 50 MB L2.  Measured at
-// that shape in bf16: 0.149 ms on an NVIDIA H100 80GB HBM3 with a 700 W
-// power limit (PERF.md), about 83 TFLOP/s: issue-bound, far from the
-// tensor cores' peak.
+// that shape in bf16, v1 (below) took 0.149 ms on an NVIDIA H100 80GB HBM3
+// with a 700 W power limit (PERF.md), about 83 TFLOP/s: issue-bound, far
+// from the tensor cores' peak.  The wgmma route (below) takes 0.057 ms
+// there and 0.70 ms at 12,288 rows (the 16x256 decode), 2.3x the bare
+// bf16 GEMM (PERF.md): its f32 x and h tiles, re-read by each of the 16
+// column blocks, double the operand bytes a bf16 GEMM reads.
 //
-// What the design does about it: each block owns a (128 rows x 32 hidden
-// columns) tile and computes all four gate tiles of those columns, so the
-// (B, 4H) gate pre-activations stay on chip and only x, h, c, W and the
-// (B, H) outputs touch device memory.  The bf16 instantiation feeds the
-// tensor cores through nvcuda::wmma 16x16x16 fragments (mma.sync); the f32
-// instantiation is a plain FMA tile for parity runs.  The reduction walks
-// X (reading x) and then H (reading h) as one sequence of 32-deep stages
-// over the same weight columns, zero-padding each ragged tail.  Stages are
-// double-buffered in shared memory: the next stage's global loads (16
-// bytes a thread where the shapes allow) are in flight in registers while
-// the tensor cores work on the current one, with one barrier per stage.
-// wgmma and TMA are later work.
+// Three routes, chosen by the wrapper (ops/kernels/lstm_step.py:
+// lstm_step_route) and passed in as an int:
+//
+// wgmma (bf16 weights, X and H multiples of 4, 16-byte aligned: the decode
+// step's shapes).  A warp-specialized Hopper GEMM with the cell update in
+// its epilogue.  Each block owns 128 rows x 64 hidden columns and computes
+// all four gates of them: its N = 256 tile is [f | i | o | g], four
+// 64-column strips W[k, q*H + j0 : q*H + j0 + 64] loaded by TMA (a strip
+// past H reads the next gate's columns, whose outputs are discarded; past
+// 4H TMA fills zeros).  Two W maps, rows [0, X) and [X, X+H), so the K
+// tail of x meets zero-filled weight rows, not h's.  One producer warp
+// keeps a ring of 6 stages (32 K steps each) full with TMA loads of the
+// f32 x or h tile and the bf16 W strips.  Two consumer warpgroups own 64
+// rows each: every stage, each rounds its rows of the f32 tile to bf16
+// into a swizzled shared-memory tile (no cast pass, no bf16 copy of x or
+// h in device memory), syncs on its own named barrier and runs
+// wgmma.m64n256k16 with both operands in shared memory, one stage of
+// products in flight.  Feeding A from registers instead made ptxas
+// serialize the wgmmas.  The accumulator layout puts column j of all four
+// gates in the same thread, so the epilogue (bias, sigmoid/tanh, c' and
+// h' in f32) reads its gates from registers with no shared-memory
+// staging.  One block an SM (214 KB of shared memory).
+//
+// wmma (bf16, ragged or unaligned shapes) and fma (f32, parity runs): v1.
+// Each block owns the same (128 rows x 32 hidden columns) tile, fed through
+// nvcuda::wmma 16x16x16 fragments (bf16) or a plain FMA tile (f32); the
+// reduction walks X then H as one sequence of 32-deep stages,
+// zero-padding each ragged tail, double-buffered through registers (16
+// bytes a thread where the shapes allow), and the epilogue stages the
+// gates through shared memory in two 64-row passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,7 +62,12 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+// Route numbers shared with the wrapper (lstm_step.py:ROUTES).
+enum Route { kFma = 0, kWmma = 1, kWgmma = 2 };
 
 constexpr int BM = 128;       // batch rows per block
 constexpr int BN = 32;        // hidden columns per block, per gate
@@ -342,6 +368,223 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
   }
 }
 
+// ---- the wgmma route ----
+
+namespace wg {
+
+constexpr int BM = 128;    // rows per block: 64 per consumer warpgroup
+constexpr int BNH = 64;    // hidden columns per block, per gate
+constexpr int BK = 32;     // reduction depth per stage: 128 f32 bytes
+constexpr int CONSUMERS = 256;                // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;       // + the producer warp
+constexpr int A_BYTES = BM * BK * 4;          // the f32 x or h tile
+constexpr int STRIP_BYTES = BK * BNH * 2;     // one gate's bf16 W strip
+constexpr int STAGE = A_BYTES + 4 * STRIP_BYTES;
+constexpr int STAGES = 6;
+constexpr int A16_BYTES = BM * BK * 2;        // the bf16 copy of a tile
+constexpr int A16_BUFS = 2;
+// the ring and the bf16 copies, aligned to the 1024-byte swizzle atom,
+// and the ring's barriers
+constexpr int SMEM = STAGES * STAGE + A16_BUFS * A16_BYTES + 1024 +
+                     2 * STAGES * 8;
+
+struct Maps {
+  CUtensorMap x, h, wx, wh;  // f32 x (B, X), h (B, H); W rows [0,X), [X,X+H)
+};
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return 1.f / (1.f + expf(-v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// This thread's share of one stage: 8 consecutive k of one row of the f32
+// tile (128-byte rows, 128-byte swizzle: 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8)), rounded to bf16 into the wgmma A tile (64-byte rows,
+// 64-byte swizzle: chunk c of row r at chunk c ^ (r / 2 % 4)).
+__device__ __forceinline__ void convert(const unsigned char* f32,
+                                        unsigned char* bf16, int chunk) {
+  const int r = chunk >> 2, c = chunk & 3;
+  const float4 lo = *reinterpret_cast<const float4*>(
+      f32 + r * 128 + (((2 * c) ^ (r & 7)) << 4));
+  const float4 hi = *reinterpret_cast<const float4*>(
+      f32 + r * 128 + (((2 * c + 1) ^ (r & 7)) << 4));
+  uint4 v;
+  v.x = pack_bf16(lo.x, lo.y);
+  v.y = pack_bf16(lo.z, lo.w);
+  v.z = pack_bf16(hi.x, hi.y);
+  v.w = pack_bf16(hi.z, hi.w);
+  *reinterpret_cast<uint4*>(bf16 + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)) = v;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_step_wgmma_kernel(const __grid_constant__ Maps maps,
+                           const float* __restrict__ c,
+                           const float* __restrict__ b,
+                           float* __restrict__ h_out,
+                           float* __restrict__ c_out, int B, int X, int H,
+                           int col_tiles) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* ring = hopper::align1024(raw);
+  unsigned char* a16 = ring + STAGES * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(a16 + A16_BUFS * A16_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  // column tile fastest: the blocks in flight share their x and h tiles
+  const int j0 = (blockIdx.x % col_tiles) * BNH;
+  const int row0 = (blockIdx.x / col_tiles) * BM;
+  const int nx = (X + BK - 1) / BK, n = nx + (H + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread issues
+    if (threadIdx.x == CONSUMERS) {
+      for (int s = 0; s < n; ++s) {
+        const int slot = s % STAGES, round = s / STAGES;
+        hopper::mbar_wait(&empty[slot], (round & 1) ^ 1);
+        const bool on_x = s < nx;
+        const int k0 = (on_x ? s : s - nx) * BK;
+        unsigned char* st = ring + slot * STAGE;
+        hopper::mbar_expect_tx(&full[slot], STAGE);
+        hopper::tma_load_2d(st, on_x ? &maps.x : &maps.h, &full[slot], k0,
+                            row0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)  // the strip of gate q
+          hopper::tma_load_2d(st + A_BYTES + q * STRIP_BYTES,
+                              on_x ? &maps.wx : &maps.wh, &full[slot],
+                              q * H + j0, k0);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 wg .. 64 wg + 63, all 4 x 64 columns
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int s = 0; s < n; ++s) {
+    const int slot = s % STAGES;
+    hopper::mbar_wait(&full[slot], (s / STAGES) & 1);
+    const unsigned char* st = ring + slot * STAGE;
+    // the warpgroup rounds its 64 rows of the f32 tile to bf16, into a
+    // copy that its stage s+2 reuses: by then stage s's products are done
+    // (wgmma_wait<1> at the end of stage s+1)
+    unsigned char* a = a16 + (s % A16_BUFS) * A16_BYTES;
+#pragma unroll
+    for (int i = 0; i < BM * BK / 8 / CONSUMERS; ++i)
+      convert(st, a, wg * 256 + (threadIdx.x & 127) + i * 128);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + wg, 128);
+
+    const unsigned char* w = st + A_BYTES;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A: 64 rows of 64 bytes, K advanced by 16 bf16 = 32 bytes; B: 16 K
+      // rows of 128 bytes per gate strip, strips 4 KB apart
+      const uint64_t da = hopper::make_desc(a + wg * 64 * 64 + kk * 32, 16,
+                                            512, hopper::kSwizzle64B);
+      const uint64_t db = hopper::make_desc(
+          w + kk * 16 * 128, STRIP_BYTES, 1024, hopper::kSwizzle128B);
+      hopper::wgmma_m64n256_ss(acc, da, db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // stage s-1's products are done: free it
+    if (s > 0) hopper::mbar_arrive(&empty[(s - 1) % STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+
+  // epilogue: column j of the four gates sits in this thread's registers
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = row0 + wg * 64 + warp * 16 + gr + hi * 8;
+    if (row >= B) continue;
+#pragma unroll
+    for (int jq = 0; jq < BNH / 8; ++jq) {
+      const int j = j0 + 8 * jq + 2 * t;  // even; H is even
+      if (j >= H) continue;
+      float gate[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          gate[q][e] = acc[(8 * q + jq) * 4 + 2 * hi + e] +
+                       __ldg(b + q * H + j + e);
+      const size_t o = (size_t)row * H + j;
+      const float2 cv = *reinterpret_cast<const float2*>(c + o);
+      float2 cn, hn;
+      cn.x = cv.x * sigmoid(gate[0][0]) +
+             sigmoid(gate[1][0]) * tanhf(gate[3][0]);
+      cn.y = cv.y * sigmoid(gate[0][1]) +
+             sigmoid(gate[1][1]) * tanhf(gate[3][1]);
+      hn.x = sigmoid(gate[2][0]) * tanhf(cn.x);
+      hn.y = sigmoid(gate[2][1]) * tanhf(cn.y);
+      *reinterpret_cast<float2*>(c_out + o) = cn;
+      *reinterpret_cast<float2*>(h_out + o) = hn;
+    }
+  }
+}
+
+int launch(const float* x, const float* h, const float* c,
+           const __nv_bfloat16* w, const float* b, float* h_out,
+           float* c_out, int B, int X, int H, cudaStream_t stream) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(h) |
+                        reinterpret_cast<uintptr_t>(c) |
+                        reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(h_out) |
+                        reinterpret_cast<uintptr_t>(c_out);
+  if (X % 4 != 0 || H % 4 != 0 || (any & 15u) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  const uint64_t xdims[2] = {(uint64_t)X, (uint64_t)B};
+  const uint64_t hdims[2] = {(uint64_t)H, (uint64_t)B};
+  const uint64_t xstride[1] = {(uint64_t)X * 4};
+  const uint64_t hstride[1] = {(uint64_t)H * 4};
+  const uint32_t abox[2] = {BK, BM};
+  const uint64_t wxdims[2] = {(uint64_t)4 * H, (uint64_t)X};
+  const uint64_t whdims[2] = {(uint64_t)4 * H, (uint64_t)H};
+  const uint64_t wstride[1] = {(uint64_t)8 * H};
+  const uint32_t wbox[2] = {BNH, BK};  // 128-byte rows
+  if (!hopper::make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, x, xdims,
+                        xstride, abox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&maps.h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, h, hdims,
+                        hstride, abox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&maps.wx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
+                        wxdims, wstride, wbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&maps.wh, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        w + (size_t)X * 4 * H, whdims, wstride, wbox,
+                        CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      lstm_step_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int col_tiles = (H + BNH - 1) / BNH;
+  const long long grid = (long long)((B + BM - 1) / BM) * col_tiles;
+  lstm_step_wgmma_kernel<<<static_cast<unsigned>(grid), THREADS, SMEM,
+                           stream>>>(maps, c, b, h_out, c_out, B, X, H,
+                                     col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// ---- the wmma and fma routes (v1) ----
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -350,9 +593,13 @@ template <typename T>
 int launch(const float* x, const float* h, const float* c, const T* w,
            const float* b, float* h_out, float* c_out, int B, int X, int H,
            cudaStream_t stream) {
-  const bool vec = X % 4 == 0 && H % Tile<T>::VPT == 0 && aligned16(x) &&
-                   aligned16(h) && aligned16(w);
-  auto kernel = vec ? lstm_step_kernel<T, true> : lstm_step_kernel<T, false>;
+  // bf16 here is a ragged or unaligned shape (aligned ones take wgmma)
+  auto kernel = lstm_step_kernel<T, false>;
+  if constexpr (!Tile<T>::kTensorCores) {
+    if (X % 4 == 0 && H % Tile<T>::VPT == 0 && aligned16(x) && aligned16(h) &&
+        aligned16(w))
+      kernel = lstm_step_kernel<T, true>;
+  }
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<T>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -364,13 +611,15 @@ int launch(const float* x, const float* h, const float* c, const T* w,
 
 }  // namespace
 
-// x (B, X), h and c (B, H): f32.  w (X+H, 4H) in bf16 when `bf16` is set,
-// else f32.  b (4H): f32.  Outputs h_out, c_out (B, H): f32.  All
-// contiguous.  Launches on `stream`; returns cudaGetLastError() (or the
-// error of setting the kernel's shared-memory size).
+// x (B, X), h and c (B, H): f32.  w (X+H, 4H) in bf16 for the wgmma and
+// wmma routes, f32 for the fma route.  b (4H): f32.  Outputs h_out, c_out
+// (B, H): f32.  All contiguous.  `route` is a Route.  Launches on
+// `stream`; returns cudaGetLastError() (or the error of setting the
+// kernel's shared-memory size, or cudaErrorInvalidValue for a shape or
+// alignment the route does not take).
 extern "C" int lrcn_lstm_step(const void* x, const void* h, const void* c,
                               const void* w, const void* b, void* h_out,
-                              void* c_out, int B, int X, int H, int bf16,
+                              void* c_out, int B, int X, int H, int route,
                               void* stream) {
   const float* xf = static_cast<const float*>(x);
   const float* hf = static_cast<const float*>(h);
@@ -378,10 +627,17 @@ extern "C" int lrcn_lstm_step(const void* x, const void* h, const void* c,
   const float* bf = static_cast<const float*>(b);
   float* ho = static_cast<float*>(h_out);
   float* co = static_cast<float*>(c_out);
+  const auto* wh = static_cast<const __nv_bfloat16*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch(xf, hf, cf, static_cast<const __nv_bfloat16*>(w), bf, ho,
-                  co, B, X, H, s);
-  return launch(xf, hf, cf, static_cast<const float*>(w), bf, ho, co, B, X,
-                H, s);
+  switch (route) {
+    case kWgmma:
+      return wg::launch(xf, hf, cf, wh, bf, ho, co, B, X, H, s);
+    case kWmma:
+      return launch(xf, hf, cf, wh, bf, ho, co, B, X, H, s);
+    case kFma:
+      return launch(xf, hf, cf, static_cast<const float*>(w), bf, ho, co, B,
+                    X, H, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -27,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from lrcn_tpu_torch import require_cuda
 from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
 from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7
 
@@ -114,8 +115,13 @@ def normalize_batch(images_u8: torch.Tensor, average_image: torch.Tensor
 
 
 def preprocess(path_or_url: str, average_image: np.ndarray,
-               device="cpu") -> torch.Tensor:
-    """Single-image pipeline -> (1, 224, 224, 3) float32 on ``device``."""
+               device="cuda") -> torch.Tensor:
+    """Single-image pipeline -> (1, 224, 224, 3) float32 on ``device``:
+    the card unless the caller asks for the CPU, as the JAX counterpart
+    returns a device array.  Raises for "cuda" where there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = require_cuda(device)
     img = torch.tensor(resize_crop(decode_image(path_or_url))[None])
     avg = torch.tensor(np.asarray(average_image, np.float32))
     return normalize_batch(img.to(device), avg.to(device))

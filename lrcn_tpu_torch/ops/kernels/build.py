@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels with ``nvcc`` and bind them with ctypes.
 
-Every ``csrc/*.cu`` file compiles, at first use, into one shared library
-with a plain C interface under ``build/lrcn_tpu_torch/`` at the root of
-the checkout: one ``nvcc -c`` per source, all started together, then one
-link.  The library's name carries a hash of the sources and the flags, so
-an edited kernel rebuilds and an unchanged one loads from the cache.
+Every ``csrc/*.cu`` file (with the shared ``csrc/*.cuh`` headers)
+compiles, at first use, into one shared library with a plain C interface
+under ``build/lrcn_tpu_torch/`` at the root of the checkout: one ``nvcc
+-c`` per source, all started together, then one link.  The library's name
+carries a hash of the sources and the flags, so an edited kernel rebuilds
+and an unchanged one loads from the cache.
 ``nvcc``'s report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``<name>.log``.
 
@@ -14,6 +15,7 @@ import every module of the package.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +24,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -35,11 +39,11 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes; every entry point returns cudaGetLastError()
 SIGNATURES = {
-    # x, h, c, w, b, h_out, c_out, B, X, H, bf16, stream
+    # x, h, c, w, b, h_out, c_out, B, X, H, route, stream
     "lrcn_lstm_step": [_P] * 7 + [_I] * 4 + [_P],
     # logits, vals, idx, lse, R, V, k, stream
     "lrcn_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
-    # x, w, b, y, B, H, W, C, F, relu, bf16, stream
+    # x, w, b, y, B, H, W, C, F, relu, route, stream
     "lrcn_conv3x3": [_P] * 4 + [_I] * 7 + [_P],
 }
 
@@ -127,6 +131,14 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Make ``device`` the current CUDA device; yield the handle of its
+    current stream, on which a C entry point launches."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def check(status: int, name: str) -> None:

@@ -11,6 +11,14 @@ with x and w in the compute dtype, f32 sums, the f32 bias added to the f32
 sum and the result cast to the compute dtype, in NHWC / HWIO layout.  The
 compute dtype is the dtype of ``w``: the encoder caches its conv weights
 in it once, at load.  bf16 is the serving path; f32 is for parity runs.
+
+A CUDA tensor takes one of three hand-written routes of the kernel,
+chosen by ``conv3x3_route`` from the shapes, dtype and alignment:
+``"wgmma"`` (bf16 with C and F multiples of 64: TMA loads, wgmma; 12 of
+VGG-16's 13 convs), ``"scalar"`` (other bf16 shapes: a gather into wmma
+tiles; conv1_1 has C = 3) and ``"fma"`` (f32).  The wrapper counts
+launches in ``fused_conv3x3_relu.launches`` and, per route, in
+``fused_conv3x3_relu.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -22,6 +30,11 @@ import torch.nn.functional as F
 
 from lrcn_tpu_torch import require_cuda
 from lrcn_tpu_torch.ops.kernels import build
+
+# route name -> the int the C entry point takes (csrc/conv3x3.cu:Route)
+ROUTES = {"fma": 0, "scalar": 1, "wgmma": 2}
+# TMA needs 16-byte aligned bases; a wgmma K step is 64 channels deep
+_TMA_ALIGN, _WGMMA_DEPTH = 16, 64
 
 _count_lock = threading.Lock()
 
@@ -68,6 +81,18 @@ def _check(x, w, b) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def conv3x3_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel route for ``x`` (already in the dtype of ``w``,
+    contiguous) and ``w``: "wgmma", "scalar" or "fma"."""
+    if w.dtype == torch.float32:
+        return "fma"
+    c, f = w.shape[2], w.shape[3]
+    aligned = all(t.data_ptr() % _TMA_ALIGN == 0 for t in (x, w))
+    if c % _WGMMA_DEPTH == 0 and f % _WGMMA_DEPTH == 0 and aligned:
+        return "wgmma"
+    return "scalar"
+
+
 def fused_conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        apply_relu: bool = True) -> torch.Tensor:
     """``relu(conv3x3(x, w) + b)`` as one kernel launch, NHWC / HWIO.
@@ -91,17 +116,18 @@ def fused_conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((b_dim, h, w_dim, f), dtype=w.dtype, device=device)
     if y.numel() == 0:
         return y
+    route = conv3x3_route(x, w)
     lib = build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with build.on_device(device) as stream:
         status = lib.lrcn_conv3x3(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            b_dim, h, w_dim, c, f, int(apply_relu),
-            int(w.dtype == torch.bfloat16), stream)
-    build.check(status, "lrcn_conv3x3")
+            b_dim, h, w_dim, c, f, int(apply_relu), ROUTES[route], stream)
+    build.check(status, f"lrcn_conv3x3 ({route})")
     with _count_lock:
         fused_conv3x3_relu.launches += 1
+        fused_conv3x3_relu.launches_by_route[route] += 1
     return y
 
 
 fused_conv3x3_relu.launches = 0
+fused_conv3x3_relu.launches_by_route = dict.fromkeys(ROUTES, 0)

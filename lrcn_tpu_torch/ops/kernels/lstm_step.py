@@ -8,6 +8,14 @@ without writing the (B, 4H) gate pre-activations to device memory.
 The compute dtype is the dtype of ``w``: the decoder caches its LSTM
 weights in the compute dtype once, at load (the JAX kernel casts them on
 every call).  bf16 is the serving path; f32 is for parity runs.
+
+A CUDA tensor takes one of three hand-written routes of the kernel,
+chosen by ``lstm_step_route`` from the shapes, dtype and alignment:
+``"wgmma"`` (bf16 with X and H multiples of 4 and 16-byte aligned
+tensors: TMA loads, wgmma, the cell update in the epilogue; the decode
+step's shapes), ``"wmma"`` (other bf16 shapes) and ``"fma"`` (f32).  The
+wrapper counts launches in ``fused_lstm_step.launches`` and, per route,
+in ``fused_lstm_step.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -19,6 +27,11 @@ import torch
 from lrcn_tpu_torch import require_cuda
 from lrcn_tpu_torch.ops import lstm
 from lrcn_tpu_torch.ops.kernels import build
+
+# route name -> the int the C entry point takes (csrc/lstm_step.cu:Route)
+ROUTES = {"fma": 0, "wmma": 1, "wgmma": 2}
+# TMA needs 16-byte aligned bases and row strides: 4 f32 per 16 bytes
+_TMA_ALIGN, _TMA_F32_STEP = 16, 4
 
 _count_lock = threading.Lock()
 
@@ -55,6 +68,18 @@ def _check(w, b, h, c, x) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def lstm_step_route(w: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                    x: torch.Tensor) -> str:
+    """The kernel route for these operands: "wgmma", "wmma" or "fma"."""
+    if w.dtype == torch.float32:
+        return "fma"
+    x_dim, h_dim = x.shape[1], h.shape[1]
+    aligned = all(t.data_ptr() % _TMA_ALIGN == 0 for t in (w, h, c, x))
+    if x_dim % _TMA_F32_STEP == 0 and h_dim % _TMA_F32_STEP == 0 and aligned:
+        return "wgmma"
+    return "wmma"
+
+
 def fused_lstm_step(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
                     c: torch.Tensor, x: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -74,18 +99,19 @@ def fused_lstm_step(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
     device = require_cuda(x.device)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
+    route = lstm_step_route(w, h, c, x)
     lib = build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with build.on_device(device) as stream:
         status = lib.lrcn_lstm_step(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            x.shape[0], x.shape[1], h.shape[1],
-            int(w.dtype == torch.bfloat16), stream)
-    build.check(status, "lrcn_lstm_step")
+            x.shape[0], x.shape[1], h.shape[1], ROUTES[route], stream)
+    build.check(status, f"lrcn_lstm_step ({route})")
     with _count_lock:
         fused_lstm_step.launches += 1
+        fused_lstm_step.launches_by_route[route] += 1
     return h_out, c_out
 
 
 fused_lstm_step.launches = 0
+fused_lstm_step.launches_by_route = dict.fromkeys(ROUTES, 0)

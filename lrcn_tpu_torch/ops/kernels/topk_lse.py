@@ -61,8 +61,7 @@ def topk_logsumexp(logits: torch.Tensor, k: int
     idx = torch.empty((r, k), dtype=torch.int32, device=device)
     lse = torch.empty((r,), dtype=torch.float32, device=device)
     lib = build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with build.on_device(device) as stream:
         status = lib.lrcn_topk_lse(logits.data_ptr(), vals.data_ptr(),
                                    idx.data_ptr(), lse.data_ptr(), r, v, k,
                                    stream)

@@ -1,0 +1,199 @@
+"""The kernel wrappers' routes, launch counters and build inputs, on the CPU.
+
+A CUDA tensor takes one of each kernel's hand-written routes, chosen by a
+pure function of the shapes, dtypes and alignment (``conv3x3_route``,
+``lstm_step_route``).  These tests hold those functions at the shapes the
+port runs, check that the route numbers agree with the C sources, and
+drive each wrapper on device tensors of the ``meta`` device with the
+library, the device check and the stream stubbed out: every route goes to
+the C entry point, never to the plain version, and is counted once.
+"""
+
+import contextlib
+import re
+import shutil
+
+import pytest
+import torch
+
+from lrcn_tpu_torch.ops.kernels import build
+from lrcn_tpu_torch.ops.kernels import conv3x3 as conv_module
+from lrcn_tpu_torch.ops.kernels import lstm_step as lstm_module
+from lrcn_tpu_torch.ops.kernels import topk_lse as topk_module
+
+# the 13 VGG-16 convs at their 9 distinct shapes (H = W, C, F)
+VGG_CONVS = [(224, 3, 64), (224, 64, 64), (112, 64, 128), (112, 128, 128),
+             (56, 128, 256), (56, 256, 256), (28, 256, 512), (28, 512, 512),
+             (14, 512, 512)]
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _misaligned(*shape, dtype):
+    """A contiguous CPU tensor whose data starts 2 elements past a 16-byte
+    boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    flat = torch.zeros(n + 16, dtype=dtype)
+    skip = (-flat.data_ptr() // flat.element_size()) % 16 + 2
+    return flat[skip:skip + n].view(shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,c,f", VGG_CONVS)
+def test_conv_route_at_vgg_shapes(hw, c, f, dtype):
+    x, w = _meta(8, hw, hw, c, dtype=dtype), _meta(3, 3, c, f, dtype=dtype)
+    want = ("fma" if dtype == torch.float32
+            else "scalar" if c == 3 else "wgmma")
+    assert conv_module.conv3x3_route(x, w) == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_route_of_ragged_shape(dtype):
+    x, w = _meta(2, 13, 17, 5, dtype=dtype), _meta(3, 3, 5, 7, dtype=dtype)
+    want = "fma" if dtype == torch.float32 else "scalar"
+    assert conv_module.conv3x3_route(x, w) == want
+
+
+def test_conv_route_needs_tma_alignment():
+    w = torch.zeros((3, 3, 64, 64), dtype=torch.bfloat16)
+    x = _misaligned(1, 4, 4, 64, dtype=torch.bfloat16)
+    assert conv_module.conv3x3_route(x, w) == "scalar"
+    assert conv_module.conv3x3_route(x.clone(), w) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [768, 12288])
+def test_lstm_route_at_decode_shapes(rows, dtype):
+    w = _meta(2000, 4000, dtype=dtype)
+    h, c, x = _meta(rows, 1000), _meta(rows, 1000), _meta(rows, 1000)
+    want = "fma" if dtype == torch.float32 else "wgmma"
+    assert lstm_module.lstm_step_route(w, h, c, x) == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lstm_route_of_ragged_shape(dtype):
+    w = _meta(37 + 70, 280, dtype=dtype)
+    h, c, x = _meta(100, 70), _meta(100, 70), _meta(100, 37)
+    want = "fma" if dtype == torch.float32 else "wmma"
+    assert lstm_module.lstm_step_route(w, h, c, x) == want
+
+
+def test_lstm_route_needs_tma_alignment():
+    w = torch.zeros((16, 32), dtype=torch.bfloat16)
+    h, c = torch.zeros((4, 8)), torch.zeros((4, 8))
+    x = _misaligned(4, 8, dtype=torch.float32)
+    assert lstm_module.lstm_step_route(w, h, c, x) == "wmma"
+    assert lstm_module.lstm_step_route(w, h, c, x.clone()) == "wgmma"
+
+
+@pytest.mark.parametrize("module,source", [
+    (conv_module, "conv3x3.cu"), (lstm_module, "lstm_step.cu")])
+def test_route_numbers_match_the_c_sources(module, source):
+    """The ints the wrappers pass are the C side's ``enum Route``."""
+    text = (build.CSRC_DIR / source).read_text()
+    body = re.search(r"enum Route \{([^}]*)\}", text).group(1)
+    in_c = {name.lower(): int(num)
+            for name, num in re.findall(r"k(\w+) = (\d+)", body)}
+    assert in_c == module.ROUTES
+
+
+class _FakeLib:
+    """Stands in for the CUDA library: records each entry point's args."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def stubbed(monkeypatch):
+    """Wrappers driven on meta tensors as if they lay on a card: the
+    library, the device check and the stream are stubbed; the plain
+    versions must not be called."""
+    lib = _FakeLib()
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("plain version called for a device tensor")
+
+    @contextlib.contextmanager
+    def on_device(device):
+        yield 0
+
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(build, "on_device", on_device)
+    for module, ref in ((conv_module, "conv3x3_relu_reference"),
+                        (lstm_module, "lstm_step_reference"),
+                        (topk_module, "topk_logsumexp_reference")):
+        monkeypatch.setattr(module, "require_cuda", lambda d: d)
+        monkeypatch.setattr(module, ref, forbidden)
+    return lib
+
+
+@pytest.mark.parametrize("c,dtype,route", [
+    (64, torch.bfloat16, "wgmma"), (3, torch.bfloat16, "scalar"),
+    (64, torch.float32, "fma")])
+def test_conv_wrapper_launches_its_route(stubbed, monkeypatch, c, dtype,
+                                         route):
+    fn = conv_module.fused_conv3x3_relu
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "launches_by_route",
+                        dict.fromkeys(conv_module.ROUTES, 0))
+    y = fn(_meta(2, 8, 8, c), _meta(3, 3, c, 64, dtype=dtype), _meta(64))
+    assert y.shape == (2, 8, 8, 64) and y.dtype == dtype
+    (name, args), = stubbed.calls
+    assert name == "lrcn_conv3x3" and args[-2] == conv_module.ROUTES[route]
+    assert fn.launches == 1
+    assert fn.launches_by_route == {r: int(r == route)
+                                    for r in conv_module.ROUTES}
+
+
+@pytest.mark.parametrize("x_dim,dtype,route", [
+    (1000, torch.bfloat16, "wgmma"), (37, torch.bfloat16, "wmma"),
+    (1000, torch.float32, "fma")])
+def test_lstm_wrapper_launches_its_route(stubbed, monkeypatch, x_dim, dtype,
+                                         route):
+    fn = lstm_module.fused_lstm_step
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "launches_by_route",
+                        dict.fromkeys(lstm_module.ROUTES, 0))
+    h_dim = 1000
+    h_out, c_out = fn(_meta(x_dim + h_dim, 4 * h_dim, dtype=dtype),
+                      _meta(4 * h_dim), _meta(768, h_dim), _meta(768, h_dim),
+                      _meta(768, x_dim))
+    assert h_out.shape == c_out.shape == (768, h_dim)
+    (name, args), = stubbed.calls
+    assert name == "lrcn_lstm_step" and args[-2] == lstm_module.ROUTES[route]
+    assert fn.launches == 1
+    assert fn.launches_by_route == {r: int(r == route)
+                                    for r in lstm_module.ROUTES}
+
+
+def test_topk_wrapper_launches_the_kernel(stubbed, monkeypatch):
+    fn = topk_module.topk_logsumexp
+    monkeypatch.setattr(fn, "launches", 0)
+    vals, idx, lse = fn(_meta(768, 8800), 3)
+    assert vals.shape == idx.shape == (768, 3) and lse.shape == (768,)
+    (name, _), = stubbed.calls
+    assert name == "lrcn_topk_lse" and fn.launches == 1
+
+
+def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
+    """``csrc/hopper.cuh`` is a build input: editing it rebuilds."""
+    assert build.CSRC_DIR / "hopper.cuh" in build.sources()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    before = build.library_path()
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path() != before

@@ -325,13 +325,27 @@ def test_host_pipeline_matches_jax(png_paths):
     avg = np.random.default_rng(2).standard_normal((224, 224, 3)
                                                    ).astype(np.float32)
     np.testing.assert_array_equal(
-        torch_images.preprocess(paths[0], avg).numpy(),
+        torch_images.preprocess(paths[0], avg, device="cpu").numpy(),
         np.asarray(jax_images.preprocess(paths[0], avg)))
     blobs = [open(p, "rb").read() for p in paths[:2]] + [b"not an image"]
     got, ok = torch_images.load_blobs(blobs)
     ref, ref_ok = jax_images.load_blobs(blobs)
     np.testing.assert_array_equal(ok, ref_ok)
     np.testing.assert_array_equal(got, ref)
+
+
+def test_preprocess_defaults_to_the_card(png_paths):
+    """Like the JAX counterpart, ``preprocess`` puts the image on the
+    device unless asked for the CPU: with no card it raises rather than
+    return a CPU tensor."""
+    path = next(iter(png_paths.values()))
+    avg = np.zeros((224, 224, 3), np.float32)
+    if torch.cuda.is_available():
+        assert torch_images.preprocess(path, avg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            torch_images.preprocess(path, avg)
+    assert torch_images.preprocess(path, avg, "cpu").device.type == "cpu"
 
 
 def test_extract_features_matches_jax(tiny_vgg, png_paths, tmp_path):
