@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's caption-serving paths once on one GPU.
 
     python3 chip_smoke.py              # from the repository root, one sm_90 card
-    python3 chip_smoke.py --profile    # instead: profile the 16x256 decode
-                                       # and fc7 extraction (torch.profiler)
+    python3 chip_smoke.py --profile    # instead: profile the 16x256 and
+                                       # 1x256 decodes and fc7 extraction
+                                       # (torch.profiler)
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
@@ -18,17 +19,25 @@ exits nonzero:
    each case must take its route (bf16 aligned: wgmma, ragged: wmma, f32:
    fma), read from the per-route launch counters; the host time of one
    launch of the wgmma route (TMA descriptors encoded) and the wmma route;
-4. top-k + log-sum-exp kernel against its plain version at (768, 8800)
-   k=3, (256, 8800) k=1 and a tie-heavy input: values and indices exact;
+4. top-k + log-sum-exp kernel: every route (block, warp, rounds) that
+   takes the case's k against the plain version, values and indices
+   exact, at (768, 8800) k=3, 9, 12, (256, 8800) k=1, (12288, 8800) k=3,
+   a tie-heavy input, edge rows (-inf entries, an all--inf row, +-1e30,
+   ties at the head and tail) at k=3 and 12, V=8801, a misaligned view,
+   R=1 and 3, and k=V; the default route must be ``topk_lse_route``'s.
+   At the timed shapes: each route's device time (torch.profiler kernel
+   durations) in turns with v1 (or rounds above k=8), the wall time per
+   wrapper call (CUDA events), host time per wrapper call and per C launch,
+   plain, ``torch.topk`` and the bound; the wrapper's host time by part;
 5. service: a JAX-format checkpoint at the reference width (random weights
    from a seed, an 8800-word synthetic vocab) and a 2048-row feature store
    are written, loaded on the card and served, beam 3, max_words 20,
    decode_batch 256, from several request threads; the kernels' launch
    counts must match the searches run, every LSTM launch on the wgmma
-   route, and in f32 (TF32 off) the kernel path's captions must agree with
-   the plain path's;
+   route and every top-k launch on ``topk_lse_route``'s route, and in f32
+   (TF32 off) the kernel path's captions must agree with the plain path's;
 6. throughput: one 16x256 beam-3 decode in bf16, its LSTM launches all on
-   the wgmma route;
+   the wgmma route, its top-k launches on ``topk_lse_route``'s;
 7. conv3x3 kernel against its plain version at the 9 distinct VGG-16 layer
    shapes at B=8 in bf16, 3 of them in f32, and a ragged 2x13x17x5->7
    shape with and without ReLU, with median CUDA-event times of the
@@ -41,8 +50,10 @@ exits nonzero:
    weights is written, loaded on the card and served by image from
    several request threads; the conv kernel must launch 13 times per
    encoder batch (12 on the wgmma route, 1 on the scalar route) and the
-   decoder kernels once per search step; in f32 (TF32 off) the kernel
-   path's fc7 and captions must agree with the plain path's;
+   decoder kernels once per search step (top-k on ``topk_lse_route``'s
+   route); in f32 (TF32 off) the kernel path's fc7 must agree with the
+   plain path's, and the decoder's kernel path with its plain path on the
+   same fc7 rows (end-to-end agreement printed);
 9. fc7 throughput: ``normalize_and_fc7`` over 16x256 uint8 images in bf16,
    kernel path (its conv launches 12:1 wgmma to scalar) and plain path.
 
@@ -94,6 +105,9 @@ REPORT_CONV = (56, 256, 256)    # the shape whose times the JSON line reports
 LSTM_ATOL = 1e-4
 #  topk: vals and idx exact; lse sums 8800 exps in another order
 LSE_ATOL = 2e-5
+# the top-k cases of phase 4 that are timed: the main path's shapes (beam
+# search of 256 images, the 16x256 decode, greedy) and a beam width above v1's
+TOPK_TIMED = ("beam", "16x256 decode", "greedy", "beam k=9")
 #  f32 service check: >= 99% equal captions; a differing one is a near-tie
 CAPTION_AGREEMENT, SCORE_ATOL = 0.99, 1e-3
 #  conv, max |kernel - plain| relative to max |plain|:
@@ -148,6 +162,18 @@ def route_delta(fn, before: dict) -> dict:
             if fn.launches_by_route[r] != before[r]}
 
 
+def check_topk_routes(by_route: dict, launches: int, where: str) -> None:
+    """Every top-k launch of the beam-3 searches took the route that
+    ``topk_lse_route`` picks for a search's (rows, 8800) logits at k=3."""
+    from lrcn_tpu_torch.ops.kernels.topk_lse import topk_lse_route
+
+    logits = torch.empty((DECODE_BATCH * BEAM, VOCAB), device="meta")
+    want = topk_lse_route(logits, BEAM)
+    check(launches > 0 and by_route.get(want) == launches,
+          f"{where}: top-k launches by route {by_route}, want all {launches} "
+          f"on {want}")
+
+
 def reset_counts(*fns) -> None:
     """Zero the launch counters, in all and by route, of these wrappers."""
     for fn in fns:
@@ -172,6 +198,40 @@ def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+DEVICE_MS_RANGE = "chip_smoke.device_ms"
+
+
+def device_ms(fn, calls: int = 30, one_kernel: bool = True) -> float:
+    """Device time per call of ``fn`` from torch.profiler's records of the
+    CUDA kernels of ``calls`` calls (after a warm-up): the median kernel
+    duration where each call launches one kernel, else their total over
+    the calls.  Host time between launches is not in it.  Each call runs
+    inside a ``record_function`` range: the profiler keeps no kernel that
+    was launched outside every recorded op (a bare C launch).  The range
+    also shows on the device's timeline, under its own name, and is left
+    out."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            with record_function(DEVICE_MS_RANGE):
+                fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.name != DEVICE_MS_RANGE]
+    if one_kernel:
+        check(len(us) >= calls // 2, f"the profiler recorded {len(us)} "
+                                     f"kernels in {calls} calls")
+        return statistics.median(us) / 1e3
+    check(len(us) >= calls, f"the profiler recorded {len(us)} kernels in "
+                            f"{calls} calls")
+    return sum(us) / calls / 1e3
 
 
 def random_tree(rng: np.random.Generator) -> dict[str, np.ndarray]:
@@ -335,55 +395,201 @@ def phase_lstm(tree, rng) -> dict:
             "host_us": host["wgmma"]}
 
 
+def lse_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the finite entries of ``want``; inf unless the
+    other entries (an all--inf row's -inf) are equal."""
+    fin = torch.isfinite(want)
+    if not (torch.equal(fin, torch.isfinite(got))
+            and torch.equal(got[~fin], want[~fin])):
+        return float("inf")
+    return (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def topk_edge_rows(gen: np.random.Generator) -> np.ndarray:
+    """Rows at the kernel's edges: -inf entries, an all--inf row, the beam's
+    +-1e30, rows of one value, ties at the head and the tail."""
+    x = (gen.standard_normal((8, VOCAB)) * 3).astype(np.float32)
+    x[0] = -np.inf
+    x[1, gen.random(VOCAB) < 0.5] = -np.inf
+    x[2] = -1e30
+    x[2, [5, VOCAB // 2, VOCAB - 1]] = 1.0
+    x[3, [17, 18, VOCAB * 2 // 3]] = 1e30
+    x[4] = 0.5
+    x[5, :VOCAB - 2] = -np.inf
+    x[6, :4] = 50.0
+    x[7, VOCAB - 3:] = 50.0
+    return x
+
+
+def topk_bound(rows: int, v: int, k: int) -> tuple[float, str]:
+    """Logits read once, values, indices and lse written once; about 4 f32
+    operations an element (max, subtract, exp, add)."""
+    return bound(4 * rows * v + 8 * rows * k + 4 * rows, 4 * rows * v,
+                 "f32")
+
+
 def phase_topk(rng) -> dict:
-    from lrcn_tpu_torch.ops.kernels import (topk_logsumexp,
+    from lrcn_tpu_torch import require_cuda
+    from lrcn_tpu_torch.ops.kernels import (build, topk_logsumexp,
                                             topk_logsumexp_reference)
+    from lrcn_tpu_torch.ops.kernels.topk_lse import (MAX_K, ROUTES,
+                                                     topk_lse_route)
 
     rows = DECODE_BATCH * BEAM
+    # the first three draw from the shared stream as they always have, so
+    # that the later phases' inputs stay the same; the rest from their own
     ties = rng.integers(-3, 3, (rows, VOCAB)).astype(np.float32)
     ties[:, 7] = ties[:, 3]
     ties[:, VOCAB - 1] = ties[:, 0]
-    cases = [("beam", rng.standard_normal((rows, VOCAB)) * 3, BEAM),
-             ("greedy", rng.standard_normal((DECODE_BATCH, VOCAB)) * 3, 1),
-             ("tie-heavy", ties, BEAM)]
-    worst, times = 0.0, {}
-    for label, x_np, k in cases:
-        x = torch.from_numpy(x_np.astype(np.float32)).cuda()
-        v_k, i_k, l_k = topk_logsumexp(x, k)
-        v_p, i_p, l_p = topk_logsumexp_reference(x, k)
-        torch.cuda.synchronize()
-        check(torch.equal(v_k, v_p) and torch.equal(i_k, i_p),
-              f"topk_logsumexp {label}: values/indices differ")
-        err = (l_k - l_p).abs().max().item()
-        check(err <= LSE_ATOL, f"topk_logsumexp {label}: lse |err| {err}")
-        worst = max(worst, err)
-        ms = median_ms(lambda: topk_logsumexp(x, k))
-        plain = median_ms(lambda: topk_logsumexp_reference(x, k))
-        lib = median_ms(lambda: torch.topk(x, k))
-        # logits read once, values, indices and lse written once; about 4
-        # f32 operations an element (max, subtract, exp, add)
+    cuda = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    beam = cuda(rng.standard_normal((rows, VOCAB)) * 3)
+    greedy = cuda(rng.standard_normal((DECODE_BATCH, VOCAB)) * 3)
+    own = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    big = torch.randn((16 * rows, VOCAB), generator=gen, device="cuda") * 3
+    flat = torch.empty(64 * VOCAB + 1, device="cuda")
+    misaligned = flat[1:].view(64, VOCAB)       # 4 bytes past 16-byte
+    misaligned.copy_(beam[:64])
+    edge = cuda(topk_edge_rows(own))
+    cases = [("beam", beam, BEAM), ("beam k=9", beam, 9),
+             ("beam k=12", beam, 12), ("greedy", greedy, 1),
+             ("tie-heavy", cuda(ties), BEAM), ("16x256 decode", big, BEAM),
+             ("edge rows", edge, BEAM), ("edge rows k=12", edge, 12),
+             ("V=8801", cuda(own.standard_normal((5, VOCAB + 1)) * 3), BEAM),
+             ("misaligned view", misaligned, BEAM),
+             ("R=1", beam[:1].clone(), BEAM), ("R=3", beam[:3].clone(), BEAM),
+             ("k=V", cuda(own.standard_normal((3, 100))), 100)]
+    worst = 0.0
+    for label, x, k in cases:
+        want = topk_logsumexp_reference(x, k)
+        routes = [r for r in ROUTES if k <= MAX_K.get(r, x.shape[1])]
+        for route in routes + [None]:
+            before = dict(topk_logsumexp.launches_by_route)
+            got = topk_logsumexp(x, k, route=route)
+            taken = route or topk_lse_route(x, k)
+            delta = route_delta(topk_logsumexp, before)
+            check(delta == {taken: 1}, f"topk_logsumexp {label}: routes "
+                                       f"{delta}, want {taken}")
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"topk_logsumexp {label} ({taken}): values/indices differ")
+            err = lse_err(got[2], want[2])
+            check(err <= LSE_ATOL, f"topk_logsumexp {label} ({taken}): lse "
+                                   f"|err| {err}")
+            worst = max(worst, err)
+        print(f"[4 topk_logsumexp] {label}: {tuple(x.shape)} k={k} routes "
+              f"{routes} (default {topk_lse_route(x, k)}): vals/idx exact, "
+              f"lse within {LSE_ATOL}")
+
+    # times at the main path's shapes: device time (profiler) of each route
+    # in turns, wall time per wrapper call, host time per call, plain,
+    # torch.topk and the bound
+    lib_c = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    timed = {}
+    for label, x, k in (c for c in cases if c[0] in TOPK_TIMED):
         r, v = x.shape
-        bnd, by = bound(4 * r * v + 8 * r * k + 4 * r, 4 * r * v, "f32")
-        times[label] = (ms, plain, lib, bnd, by)
-        print(f"[4 topk_logsumexp] {label}: {tuple(x.shape)} k={k} vals/idx "
-              f"exact, lse max|err|={err:.3g} (tol {LSE_ATOL}) kernel "
-              f"{ms:.4f} ms plain {plain:.4f} ms torch.topk {lib:.4f} ms "
-              f"bound {bnd:.4f} ms ({by})")
-    ms, plain, lib, bnd, by = times["beam"]
+        default = topk_lse_route(x, k)
+        other = "warp" if k <= MAX_K["warp"] else "rounds"
+        big_rows = r > rows
+        dev = {default: [], other: []}
+        for route in (other, default, default, other):
+            dev[route].append(device_ms(
+                lambda: topk_logsumexp(x, k, route=route),
+                calls=10 if big_rows else 30))
+        dev = {route: statistics.mean(ms) for route, ms in dev.items()}
+        wall = median_ms(lambda: topk_logsumexp(x, k),
+                         **(dict(reps=7, inner=3) if big_rows else {}))
+        host = host_us(lambda: topk_logsumexp(x, k))
+        vals, idx, lse = (torch.empty((r, k), device="cuda"),
+                          torch.empty((r, k), device="cuda",
+                                      dtype=torch.int32),
+                          torch.empty(r, device="cuda"))
+        host_c = host_us(lambda: build.check(lib_c.lrcn_topk_lse(
+            x.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), r,
+            v, k, ROUTES[default], stream), default))
+        plain = device_ms(lambda: topk_logsumexp_reference(x, k),
+                          calls=3 if big_rows else 10, one_kernel=False)
+        lib = device_ms(lambda: torch.topk(x, k), calls=10 if big_rows
+                        else 30, one_kernel=False)
+        bnd, by = topk_bound(r, v, k)
+        timed[label] = dict(ms=dev[default], other_ms=dev[other], wall=wall,
+                            host=host, host_c=host_c, plain=plain, lib=lib,
+                            bnd=bnd, by=by)
+        print(f"[4 topk_logsumexp] {label} {tuple(x.shape)} k={k}: device "
+              f"{default} {dev[default]:.4f} ms, {other} {dev[other]:.4f} ms "
+              f"(in turns); wall per call {wall:.4f} ms; host per wrapper "
+              f"call {host:.2f} us, per C launch {host_c:.2f} us; plain "
+              f"{plain:.4f} ms; torch.topk {lib:.4f} ms; bound {bnd:.4f} ms "
+              f"({by}), {bnd / dev[default]:.1%} of it")
+    # the wrapper's host time by part at the beam shape: what it skips once
+    # a device has passed (the capability query; the device switch and the
+    # Stream object, where the device is current) beside what it keeps
+    device = beam.device
+
+    def switch_and_stream():
+        with torch.cuda.device(device):
+            return torch.cuda.current_stream(device).cuda_stream
+
+    def on_device():
+        with build.on_device(device) as s:
+            return s
+
+    parts = {"capability query": lambda: torch.cuda.get_device_capability(
+                 device),
+             "device switch + Stream": switch_and_stream,
+             "require_cuda": lambda: require_cuda(device),
+             "on_device": on_device,
+             "3 x torch.empty": lambda: (
+                 torch.empty((rows, BEAM), device=device),
+                 torch.empty((rows, BEAM), device=device, dtype=torch.int32),
+                 torch.empty(rows, device=device))}
+    print(f"[4 topk_logsumexp] host us per part, ({rows}, {VOCAB}) k={BEAM}:"
+          f" skipped: " + ", ".join(f"{name} {host_us(fn):.2f}"
+                                    for name, fn in list(parts.items())[:2])
+          + "; kept: " + ", ".join(f"{name} {host_us(fn):.2f}"
+                                   for name, fn in list(parts.items())[2:]))
+    t = timed["beam"]
     return {"name": "topk_logsumexp", "route": "cuda",
             "source": "lrcn_tpu_torch/csrc/topk_lse.cu",
             "replaces": "lrcn_tpu/ops/pallas/topk_lse.py:62",
-            "shape": f"({rows}, {VOCAB}) k={BEAM}", "kernel_route": "cuda",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "library": "torch.topk", "bound_ms": bnd,
-            "bound_by": by}
+            "shape": f"({rows}, {VOCAB}) k={BEAM}",
+            "kernel_route": topk_lse_route(beam, BEAM),
+            "routes": list(ROUTES), "max_abs_err": worst,
+            "ms": t["ms"], "v1_ms": t["other_ms"], "wall_ms": t["wall"],
+            "plain_ms": t["plain"], "library_ms": t["lib"],
+            "library": "torch.topk", "bound_ms": t["bnd"],
+            "bound_by": t["by"], "host_us": t["host"],
+            "host_c_us": t["host_c"],
+            "timing": "device time from torch.profiler (ms, v1_ms, "
+                      "plain_ms, library_ms); wall_ms by CUDA events"}
+
+
+def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str
+                   ) -> tuple[int, float, int]:
+    """Hold a kernel path's f32 captions against the plain path's: at least
+    CAPTION_AGREEMENT equal, and every differing one a near-tie (score gap
+    <= SCORE_ATOL).  Returns (captions equal, max score gap, distinct
+    captions)."""
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+
+    cap_k = detokenize_batch(tok_k.cpu().numpy(), vocab)
+    cap_p = detokenize_batch(tok_p.cpu().numpy(), vocab)
+    differ = [i for i, (a, b) in enumerate(zip(cap_k, cap_p)) if a != b]
+    gaps = (sc_k - sc_p).abs().cpu().numpy()
+    agree = 1 - len(differ) / len(cap_k)
+    check(agree >= CAPTION_AGREEMENT,
+          f"{label}: kernel vs plain captions agree on {agree:.4f} only")
+    check(all(gaps[i] <= SCORE_ATOL for i in differ),
+          f"{label}: differing captions' score gaps {gaps[differ].tolist()}")
+    return len(cap_k) - len(differ), float(gaps.max()), len(set(cap_k))
 
 
 def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
     from lrcn_tpu_torch.config import LRCNConfig
     from lrcn_tpu_torch.data.feature_store import FeatureStore
     from lrcn_tpu_torch.decode.beam import beam_search
-    from lrcn_tpu_torch.decode.writer import detokenize_batch
     from lrcn_tpu_torch.ops.kernels import fused_lstm_step, topk_logsumexp
     from lrcn_tpu_torch.serve import CaptionService
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
@@ -429,7 +635,8 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
     serve_s = time.perf_counter() - t0
     launches = {"fused_lstm_step": fused_lstm_step.launches,
                 "topk_logsumexp": topk_logsumexp.launches}
-    by_route = {"fused_lstm_step": dict(fused_lstm_step.launches_by_route)}
+    by_route = {"fused_lstm_step": dict(fused_lstm_step.launches_by_route),
+                "topk_logsumexp": dict(topk_logsumexp.launches_by_route)}
     svc.close()     # joins the batcher threads: their stats are final
     searches = (sum(s["batches"] for s in svc.stats().values())
                 - batches_before)
@@ -450,10 +657,12 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
           f"{searches} searches of {steps} steps")
     check(by_route["fused_lstm_step"]["wgmma"] == launches["fused_lstm_step"],
           f"fused_lstm_step routes {by_route['fused_lstm_step']}")
+    check_topk_routes(by_route["topk_logsumexp"], launches["topk_logsumexp"],
+                      "service")
     print(f"[5 service] warmup {warm_s:.2f} s; {n_captions} captions for "
           f"{len(requests)} concurrent requests in {serve_s:.3f} s, "
-          f"{searches} searches; launches {launches}, LSTM by route "
-          f"{by_route['fused_lstm_step']}; e.g. {answers[0][0][:60]!r}")
+          f"{searches} searches; launches {launches}, by route {by_route}; "
+          f"e.g. {answers[0][0][:60]!r}")
 
     # kernel path against plain path in f32, TF32 off
     dec32 = load_checkpoint(os.path.join(WORK, "ckpt"), device="cuda",
@@ -463,26 +672,18 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
                               max_words=MAX_WORDS)
     tok_p, sc_p = beam_search(dec32, batch, beam_width=BEAM,
                               max_words=MAX_WORDS, use_kernels=False)
-    cap_k = detokenize_batch(tok_k.cpu().numpy(), ck["vocab"])
-    cap_p = detokenize_batch(tok_p.cpu().numpy(), ck["vocab"])
-    differ = [i for i, (a, b) in enumerate(zip(cap_k, cap_p)) if a != b]
-    gaps = (sc_k - sc_p).abs().cpu().numpy()
-    agree = 1 - len(differ) / len(cap_k)
-    check(agree >= CAPTION_AGREEMENT,
-          f"f32 kernel vs plain captions agree on {agree:.4f} only")
-    check(all(gaps[i] <= SCORE_ATOL for i in differ),
-          f"differing captions' score gaps {gaps[differ].tolist()}")
-    distinct = len(set(cap_k))
-    print(f"[5 service f32] kernel vs plain path: {len(cap_k) - len(differ)}"
-          f"/{len(cap_k)} captions equal (need {CAPTION_AGREEMENT}); max "
-          f"score gap {gaps.max():.3g}; {distinct} distinct captions")
+    equal, gap, distinct = check_captions(tok_k, sc_k, tok_p, sc_p,
+                                          ck["vocab"], "f32 service")
+    print(f"[5 service f32] kernel vs plain path: {equal}/{len(tok_k)} "
+          f"captions equal (need {CAPTION_AGREEMENT}); max score gap "
+          f"{gap:.3g}; {distinct} distinct captions")
     return launches, by_route, torch.from_numpy(feats)
 
 
 def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
                      ) -> float:
     from lrcn_tpu_torch.decode.beam import beam_search_grouped
-    from lrcn_tpu_torch.ops.kernels import fused_lstm_step
+    from lrcn_tpu_torch.ops.kernels import fused_lstm_step, topk_logsumexp
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
 
     decoder = load_checkpoint(decoder_path, device="cuda")["decoder"]
@@ -494,7 +695,7 @@ def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
     run()
     torch.cuda.synchronize()
     iters = 3
-    reset_counts(fused_lstm_step)
+    reset_counts(fused_lstm_step, topk_logsumexp)
     t0 = time.perf_counter()
     for _ in range(iters):
         tokens, _ = run()
@@ -502,13 +703,16 @@ def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
     dt = time.perf_counter() - t0
     rate = iters * groups * DECODE_BATCH / dt
     routes = dict(fused_lstm_step.launches_by_route)
+    topk_routes = dict(topk_logsumexp.launches_by_route)
     check(fused_lstm_step.launches > 0
           and routes["wgmma"] == fused_lstm_step.launches,
           f"16x{DECODE_BATCH} decode: LSTM launches by route {routes}")
+    check_topk_routes(topk_routes, topk_logsumexp.launches,
+                      f"16x{DECODE_BATCH} decode")
     print(f"[6 throughput] beam-{BEAM} max_words={MAX_WORDS} "
           f"{groups}x{DECODE_BATCH} bf16: {rate:.1f} captions/s "
-          f"({dt / iters * 1e3:.1f} ms per decode) on {smi}; LSTM launches "
-          f"by route {routes}")
+          f"({dt / iters * 1e3:.1f} ms per decode) on {smi}; launches by "
+          f"route: LSTM {routes}, top-k {topk_routes}")
     return rate
 
 
@@ -639,7 +843,6 @@ def phase_images(tree, rng) -> dict:
     from lrcn_tpu_torch.config import LRCNConfig
     from lrcn_tpu_torch.data.images import normalize_batch
     from lrcn_tpu_torch.decode.beam import beam_search
-    from lrcn_tpu_torch.decode.writer import detokenize_batch
     from lrcn_tpu_torch.models.vgg import l1_normalize, vgg16_fc7
     from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
                                             fused_lstm_step, topk_logsumexp)
@@ -684,7 +887,8 @@ def phase_images(tree, rng) -> dict:
                 "topk_logsumexp": topk_logsumexp.launches}
     by_route = {"fused_conv3x3_relu":
                 dict(fused_conv3x3_relu.launches_by_route),
-                "fused_lstm_step": dict(fused_lstm_step.launches_by_route)}
+                "fused_lstm_step": dict(fused_lstm_step.launches_by_route),
+                "topk_logsumexp": dict(topk_logsumexp.launches_by_route)}
     svc.close()     # joins the batcher threads: their stats are final
     after = svc.stats()
     encodes = after["encode"]["batches"] - before["encode"]
@@ -710,6 +914,8 @@ def phase_images(tree, rng) -> dict:
           f"wgmma and 1 scalar (conv1_1) each")
     check(by_route["fused_lstm_step"]["wgmma"] == launches["fused_lstm_step"],
           f"LSTM routes {by_route['fused_lstm_step']}")
+    check_topk_routes(by_route["topk_logsumexp"], launches["topk_logsumexp"],
+                      "image service")
     print(f"[8 images] warmup {warm_s:.2f} s; {sum(sizes)} captions for "
           f"{len(requests)} concurrent image requests in {serve_s:.3f} s, "
           f"{encodes} encoder batches of {ENCODE_BATCH}, {searches} "
@@ -733,25 +939,29 @@ def phase_images(tree, rng) -> dict:
     scale = fc7[False].abs().max().item()
     check(err <= FC7_RTOL * scale, f"f32 fc7 kernel vs plain: max |err| "
                                    f"{err} > {FC7_RTOL} x {scale}")
-    tok_k, sc_k = beam_search(dec32, l1_normalize(fc7[True]),
-                              beam_width=BEAM, max_words=MAX_WORDS)
-    tok_p, sc_p = beam_search(dec32, l1_normalize(fc7[False]),
+    # The decoder's kernels against its plain path on the same fc7 rows (the
+    # kernel path's); the conv kernel is held by the fc7 check above.  End
+    # to end (kernel fc7 and decoder kernels against plain fc7 and plain
+    # decoder) is printed, not held: two fc7 within FC7_RTOL of each other
+    # may tip a near-tie of a random-weight model either way.
+    feats_k = l1_normalize(fc7[True])
+    tok_k, sc_k = beam_search(dec32, feats_k, beam_width=BEAM,
+                              max_words=MAX_WORDS)
+    tok_p, sc_p = beam_search(dec32, feats_k, beam_width=BEAM,
+                              max_words=MAX_WORDS, use_kernels=False)
+    equal, gap, distinct = check_captions(tok_k, sc_k, tok_p, sc_p,
+                                          ck32["vocab"], "f32 image decoder")
+    tok_e, sc_e = beam_search(dec32, l1_normalize(fc7[False]),
                               beam_width=BEAM, max_words=MAX_WORDS,
                               use_kernels=False)
-    cap_k = detokenize_batch(tok_k.cpu().numpy(), ck32["vocab"])
-    cap_p = detokenize_batch(tok_p.cpu().numpy(), ck32["vocab"])
-    differ = [i for i, (a, b) in enumerate(zip(cap_k, cap_p)) if a != b]
-    gaps = (sc_k - sc_p).abs().cpu().numpy()
-    agree = 1 - len(differ) / len(cap_k)
-    check(agree >= CAPTION_AGREEMENT,
-          f"f32 image kernel vs plain captions agree on {agree:.4f} only")
-    check(all(gaps[i] <= SCORE_ATOL for i in differ),
-          f"differing captions' score gaps {gaps[differ].tolist()}")
-    print(f"[8 images f32] kernel vs plain path over {len(cap_k)} images: "
+    end_equal = int((tok_k == tok_e).all(dim=1).sum().item())
+    end_gap = (sc_k - sc_e).abs().max().item()
+    print(f"[8 images f32] kernel vs plain path over {len(tok_k)} images: "
           f"fc7 max|err| {err:.3g} (tol {FC7_RTOL} x max|fc7| {scale:.3g});"
-          f" {len(cap_k) - len(differ)}/{len(cap_k)} captions equal (need "
-          f"{CAPTION_AGREEMENT}); max score gap {gaps.max():.3g}; "
-          f"{len(set(cap_k))} distinct captions")
+          f" decoder on the same fc7: {equal}/{len(tok_k)} captions equal "
+          f"(need {CAPTION_AGREEMENT}), max score gap {gap:.3g}, {distinct} "
+          f"distinct captions; end to end: {end_equal}/{len(tok_k)} equal, "
+          f"max score gap {end_gap:.3g}")
     return launches, by_route
 
 
@@ -852,8 +1062,9 @@ def profile_window(label: str, run) -> None:
 
 
 def profile_paths(smi: str) -> None:
-    """``--profile``: where the device time goes in one 16x256 beam-3
-    decode and one 16x256 fc7 extraction, bf16, random weights."""
+    """``--profile``: where the device time goes in one 16x256 and one
+    1x256 (a serving search) beam-3 decode and in fc7 extraction of 1x8
+    and 16x256 images, bf16, random weights."""
     from lrcn_tpu_torch.data.images import normalize_and_fc7
     from lrcn_tpu_torch.decode.beam import beam_search_grouped
     from lrcn_tpu_torch.models.lrcn import params_from_numpy
@@ -865,9 +1076,11 @@ def profile_paths(smi: str) -> None:
     feats = torch.from_numpy((raw / raw.sum(1, keepdims=True)).astype(
         np.float32)).view(FC7_GROUPS, DECODE_BATCH, -1).cuda().to(
             torch.bfloat16)
-    profile_window(f"beam-{BEAM} decode {FC7_GROUPS}x{DECODE_BATCH} bf16 "
-                   f"on {smi}", lambda: beam_search_grouped(
-                       decoder, feats, beam_width=BEAM, max_words=MAX_WORDS))
+    for groups in (FC7_GROUPS, 1):
+        profile_window(f"beam-{BEAM} decode {groups}x{DECODE_BATCH} bf16 "
+                       f"on {smi}", lambda: beam_search_grouped(
+                           decoder, feats[:groups], beam_width=BEAM,
+                           max_words=MAX_WORDS))
     del decoder, feats
     vgg = vgg_params_from_numpy(random_vgg(rng), "cuda", torch.bfloat16)
     avg = torch.full((224, 224, 3), 117.0, device="cuda")

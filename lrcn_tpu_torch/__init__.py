@@ -38,10 +38,18 @@ def as_device(device) -> torch.device:
     return device
 
 
+_verified: set[torch.device] = set()   # devices that passed require_cuda
+
+
 def require_cuda(device) -> torch.device:
     """Return ``device`` as a ``torch.device``; raise unless it is a CUDA
-    device on an sm_90 card, which the kernels are built for."""
+    device on an sm_90 card, which the kernels are built for.  A device
+    with an index that passed once is not queried again (a card's
+    capability does not change): the kernel wrappers call this on every
+    launch."""
     device = torch.device(device)
+    if device in _verified:
+        return device
     if device.type != "cuda":
         raise RuntimeError(f"the CUDA kernels need a CUDA device, got "
                            f"{device}")
@@ -53,4 +61,6 @@ def require_cuda(device) -> torch.device:
         raise RuntimeError(
             f"{torch.cuda.get_device_name(device)} is sm_{capability[0]}"
             f"{capability[1]}; the kernels are built for sm_90a")
+    if device.index is not None:
+        _verified.add(device)
     return device

@@ -41,8 +41,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # x, h, c, w, b, h_out, c_out, B, X, H, route, stream
     "lrcn_lstm_step": [_P] * 7 + [_I] * 4 + [_P],
-    # logits, vals, idx, lse, R, V, k, stream
-    "lrcn_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
+    # logits, vals, idx, lse, R, V, k, route, stream
+    "lrcn_topk_lse": [_P] * 4 + [_I] * 4 + [_P],
     # x, w, b, y, B, H, W, C, F, relu, route, stream
     "lrcn_conv3x3": [_P] * 4 + [_I] * 7 + [_P],
 }
@@ -134,11 +134,18 @@ def load() -> ctypes.CDLL:
 
 
 @contextlib.contextmanager
-def on_device(device):
-    """Make ``device`` the current CUDA device; yield the handle of its
-    current stream, on which a C entry point launches."""
+def on_device(device: torch.device):
+    """Make ``device`` (a CUDA device with an index) the current CUDA
+    device; yield the handle of its current stream, on which a C entry
+    point launches.  Where it is current already, nothing is switched and
+    the handle is read as an int directly (what ``current_stream(device)
+    .cuda_stream`` gives, without building a Stream object): this runs on
+    every launch."""
+    if torch.cuda.current_device() == device.index:
+        yield torch._C._cuda_getCurrentRawStream(device.index)
+        return
     with torch.cuda.device(device):
-        yield torch.cuda.current_stream(device).cuda_stream
+        yield torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(status: int, name: str) -> None:

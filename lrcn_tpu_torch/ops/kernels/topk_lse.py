@@ -6,7 +6,17 @@ kernel is ``csrc/topk_lse.cu``.  For (R, V) logits it returns, in one pass
 over each row, the top-k values in descending order, their indices
 (lowest index first among equal values, ``lax.top_k``'s rule) and the
 row's log-sum-exp.  The beam step ranks candidates by ``vals - lse``: the
-shift is per row, so this is the top-k of ``log_softmax``.
+shift is per row, so this is the top-k of ``log_softmax``.  Every
+``1 <= k <= V`` is taken, as in the JAX package.
+
+A CUDA tensor takes one of three hand-written routes of the kernel,
+chosen by ``topk_lse_route`` from k: ``"block"`` (one block per row, a
+register list of the k best; k <= 16, every beam width the service
+runs), ``"rounds"`` (k block-wide argmax rounds over the row; any k) and
+``"warp"`` (v1, one warp per row; k <= 8), which the route function does
+not pick and a caller may ask for by name.  The wrapper counts launches in
+``topk_logsumexp.launches`` and, per route, in
+``topk_logsumexp.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -18,7 +28,11 @@ import torch
 from lrcn_tpu_torch import require_cuda
 from lrcn_tpu_torch.ops.kernels import build
 
-MAX_K = 8   # the kernel is instantiated for k = 1..8
+# route name -> the int the C entry point takes (csrc/topk_lse.cu:Route)
+ROUTES = {"warp": 0, "block": 1, "rounds": 2}
+# the largest k of each register-list route (its template instances);
+# "rounds" takes any k <= V
+MAX_K = {"warp": 8, "block": 16}
 
 _count_lock = threading.Lock()
 
@@ -37,25 +51,38 @@ def topk_logsumexp_reference(logits: torch.Tensor, k: int
             torch.logsumexp(logits, dim=-1))
 
 
-def topk_logsumexp(logits: torch.Tensor, k: int
+def topk_lse_route(logits: torch.Tensor, k: int) -> str:
+    """The kernel route for these logits and k: "block" up to its register
+    list's k, else "rounds".  Any V and any row alignment take either."""
+    return "block" if k <= MAX_K["block"] else "rounds"
+
+
+def topk_logsumexp(logits: torch.Tensor, k: int, *, route: str | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(R, V) f32 logits -> (vals (R, k) f32 desc, idx (R, k) int32,
-    lse (R,) f32).
+    lse (R,) f32), for any 1 <= k <= V.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  Rows are expected finite (NaN is never selected).
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    ``route`` (default ``topk_lse_route``) or raise.  Rows are expected
+    finite or -inf (NaN and +inf are out of contract).
     """
     if logits.dim() != 2:
         raise ValueError(f"logits must be (R, V), got {tuple(logits.shape)}")
     r, v = logits.shape
-    if not 1 <= k <= min(MAX_K, v):
-        raise ValueError(f"k={k} must be in 1..{min(MAX_K, v)} (V={v})")
+    if not 1 <= k <= v:
+        raise ValueError(f"k={k} must be in 1..{v} (V={v})")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {list(ROUTES)}")
+    if route is not None and k > MAX_K.get(route, v):
+        raise ValueError(f"route {route!r} takes k <= {MAX_K[route]}, "
+                         f"got k={k}")
     if logits.dtype != torch.float32:
         raise TypeError(f"logits must be float32, got {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("logits must be contiguous")
     if logits.device.type == "cpu":
         return topk_logsumexp_reference(logits, k)
+    route = topk_lse_route(logits, k) if route is None else route
     device = require_cuda(logits.device)
     vals = torch.empty((r, k), dtype=torch.float32, device=device)
     idx = torch.empty((r, k), dtype=torch.int32, device=device)
@@ -64,11 +91,13 @@ def topk_logsumexp(logits: torch.Tensor, k: int
     with build.on_device(device) as stream:
         status = lib.lrcn_topk_lse(logits.data_ptr(), vals.data_ptr(),
                                    idx.data_ptr(), lse.data_ptr(), r, v, k,
-                                   stream)
-    build.check(status, "lrcn_topk_lse")
+                                   ROUTES[route], stream)
+    build.check(status, f"lrcn_topk_lse ({route})")
     with _count_lock:
         topk_logsumexp.launches += 1
+        topk_logsumexp.launches_by_route[route] += 1
     return vals, idx, lse
 
 
 topk_logsumexp.launches = 0
+topk_logsumexp.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -107,6 +107,25 @@ def test_beam_search_tokens_match_jax_f32(small, k):
     np.testing.assert_array_equal(plain_s, scores)
 
 
+@pytest.mark.parametrize("entry", ["beam_search", "search"])
+@pytest.mark.parametrize("k", [9, 12])
+def test_wide_beams_match_jax_f32(small, k, entry):
+    """Beam widths above 8, which the JAX package takes (``lax.top_k``)
+    and the port once refused."""
+    cfg, params, tree, feats = small
+    decoder = params_from_numpy(tree, CPU, torch.float32)
+    ref_t, ref_s = jax_beam.beam_search(params, jnp.asarray(feats),
+                                        beam_width=k, max_words=12,
+                                        compute_dtype=jnp.float32)
+    ref_t, ref_s = np.asarray(ref_t), np.asarray(ref_s)
+    tokens, scores = getattr(torch_beam, entry)(
+        decoder, torch.from_numpy(feats), beam_width=k, max_words=12)
+    tokens, scores = tokens.numpy(), scores.numpy()
+    assert tokens.shape == (feats.shape[0], 14)
+    _assert_tokens_equal(tokens, ref_t, scores, ref_s)
+    np.testing.assert_allclose(scores, ref_s, rtol=1e-5, atol=1e-5)
+
+
 def test_beam_search_matches_jax_pallas_path():
     """The JAX beam search through its Pallas LSTM kernel (interpret mode,
     as tests/test_pallas.py runs it) against the port's, which runs the

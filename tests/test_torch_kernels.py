@@ -1,10 +1,11 @@
 """The kernel wrappers' routes, launch counters and build inputs, on the CPU.
 
 A CUDA tensor takes one of each kernel's hand-written routes, chosen by a
-pure function of the shapes, dtypes and alignment (``conv3x3_route``,
-``lstm_step_route``).  These tests hold those functions at the shapes the
-port runs, check that the route numbers agree with the C sources, and
-drive each wrapper on device tensors of the ``meta`` device with the
+pure function of the shapes, dtypes, alignment and k (``conv3x3_route``,
+``lstm_step_route``, ``topk_lse_route``).  These tests hold those
+functions at the shapes the port runs, check that the route numbers agree
+with the C sources, and drive each wrapper on device tensors of the
+``meta`` device with the
 library, the device check and the stream stubbed out: every route goes to
 the C entry point, never to the plain version, and is counted once.
 """
@@ -91,8 +92,28 @@ def test_lstm_route_needs_tma_alignment():
     assert lstm_module.lstm_step_route(w, h, c, x.clone()) == "wgmma"
 
 
+@pytest.mark.parametrize("rows,v,k,want", [
+    (768, 8800, 3, "block"),        # beam-3 search of 256 images
+    (12288, 8800, 3, "block"),      # the 16x256 decode
+    (256, 8800, 1, "block"),        # greedy
+    (768, 8800, 9, "block"), (768, 8800, 16, "block"),
+    (768, 8800, 17, "rounds"), (3, 100, 100, "rounds"),
+    (5, 8801, 3, "block")])
+def test_topk_route_at_main_path_shapes(rows, v, k, want):
+    assert topk_module.topk_lse_route(_meta(rows, v), k) == want
+
+
+def test_topk_route_takes_misaligned_rows():
+    """The block route reads each row's unaligned head and tail itself."""
+    x = _misaligned(64, 8800, dtype=torch.float32)
+    assert x.data_ptr() % 16 != 0
+    assert topk_module.topk_lse_route(x, 3) == "block"
+    assert topk_module.topk_lse_route(x.clone(), 3) == "block"
+
+
 @pytest.mark.parametrize("module,source", [
-    (conv_module, "conv3x3.cu"), (lstm_module, "lstm_step.cu")])
+    (conv_module, "conv3x3.cu"), (lstm_module, "lstm_step.cu"),
+    (topk_module, "topk_lse.cu")])
 def test_route_numbers_match_the_c_sources(module, source):
     """The ints the wrappers pass are the C side's ``enum Route``."""
     text = (build.CSRC_DIR / source).read_text()
@@ -185,6 +206,36 @@ def test_topk_wrapper_launches_the_kernel(stubbed, monkeypatch):
     assert vals.shape == idx.shape == (768, 3) and lse.shape == (768,)
     (name, _), = stubbed.calls
     assert name == "lrcn_topk_lse" and fn.launches == 1
+
+
+@pytest.mark.parametrize("k,asked,route", [
+    (3, None, "block"), (3, "warp", "warp"), (3, "rounds", "rounds"),
+    (8, "warp", "warp"), (12, None, "block"), (12, "rounds", "rounds"),
+    (17, None, "rounds")])
+def test_topk_wrapper_launches_its_route(stubbed, monkeypatch, k, asked,
+                                         route):
+    fn = topk_module.topk_logsumexp
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "launches_by_route",
+                        dict.fromkeys(topk_module.ROUTES, 0))
+    vals, idx, lse = fn(_meta(768, 8800), k, route=asked)
+    assert vals.shape == idx.shape == (768, k) and lse.shape == (768,)
+    assert vals.dtype == lse.dtype == torch.float32
+    assert idx.dtype == torch.int32
+    (name, args), = stubbed.calls
+    assert name == "lrcn_topk_lse"
+    assert args[4:8] == (768, 8800, k, topk_module.ROUTES[route])
+    assert fn.launches == 1
+    assert fn.launches_by_route == {r: int(r == route)
+                                    for r in topk_module.ROUTES}
+
+
+@pytest.mark.parametrize("k,asked", [(9, "warp"), (17, "block"),
+                                     (3, "tiles")])
+def test_topk_wrapper_refuses_a_route_that_cannot_take_k(stubbed, k, asked):
+    with pytest.raises(ValueError):
+        topk_module.topk_logsumexp(_meta(768, 8800), k, route=asked)
+    assert stubbed.calls == []
 
 
 def test_build_hashes_the_shared_header(tmp_path, monkeypatch):

@@ -106,11 +106,16 @@ def _tie_heavy(rng, r, v):
     return x
 
 
-@pytest.mark.parametrize("k", [1, 3, 4])
+# 9 and 12: beam widths above v1's register list; K_EQ_V: k = V, on a
+# narrower row (the interpreted Pallas kernel unrolls k rounds)
+K_EQ_V = 64
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 9, 12, K_EQ_V])
 @pytest.mark.parametrize("ties", [False, True])
 def test_topk_logsumexp_reference_matches_pallas_interpret(k, ties):
     rng = np.random.default_rng(k)
-    r, v = 16, 300
+    r, v = 16, K_EQ_V if k == K_EQ_V else 300
     x = (_tie_heavy(rng, r, v) if ties
          else rng.standard_normal((r, v)).astype(np.float32) * 3)
     ref_v, ref_i, ref_l = jax_topk_lse(jnp.asarray(x), k, interpret=True)
