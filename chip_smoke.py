@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py              # from the repository root, one sm_90 card
     python3 chip_smoke.py --profile    # instead: profile the 16x256 and
-                                       # 1x256 decodes and fc7 extraction
-                                       # (torch.profiler)
+                                       # 1x256 decodes, sampling, fc7
+                                       # extraction and a training
+                                       # dispatch (torch.profiler)
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
@@ -13,9 +14,10 @@ exits nonzero:
 2. build: the kernels compile from ``lrcn_tpu_torch/csrc/``;
 3. fused LSTM step kernel against its plain version at the decode step's
    shapes (768 rows, X = H = 1000, both layers' weights) in bf16 and f32,
-   bf16 at 3072 and 12288 rows (a 4-group burst, the 16x256 decode), plus a
-   ragged shape, with median CUDA-event times of the kernel, the plain
-   version and ``torch.mm`` on a pre-concatenated [x, h] (the GEMM alone);
+   bf16 at 3072, 12288 and 25600 rows (a 4-group burst, the 16x256 decode,
+   best-of-100 sampling of 256 images), plus a ragged shape, with median
+   CUDA-event times of the kernel, the plain version and ``torch.mm`` on
+   a pre-concatenated [x, h] (the GEMM alone);
    each case must take its route (bf16 aligned: wgmma, ragged: wmma, f32:
    fma), read from the per-route launch counters; the host time of one
    launch of the wgmma route (TMA descriptors encoded) and the wmma route;
@@ -55,14 +57,28 @@ exits nonzero:
    plain path's, and the decoder's kernel path with its plain path on the
    same fc7 rows (end-to-end agreement printed);
 9. fc7 throughput: ``normalize_and_fc7`` over 16x256 uint8 images in bf16,
-   kernel path (its conv launches 12:1 wgmma to scalar) and plain path.
+   kernel path (its conv launches 12:1 wgmma to scalar) and plain path;
+10. training: ``Trainer.train_epoch`` at the reference width (B=256, L=20,
+   lengths 10-20, K=8 steps a dispatch, a 10,000-row feature table on the
+   card, dropout 0.4, bf16), ms per step and words/s over 5 dispatches
+   after a warm-up one, peak memory, the step's bound, and no hand-written
+   kernel launched; one narrow step (hidden 128) on the card against the
+   same code on the CPU, f32 (TF32 off) and bf16, loss and every
+   gradient; ``Trainer.fit`` on a learnable synthetic set (the loss falls
+   below a fifth, the checkpoint loads and captions every image right
+   through the kernels); a run interrupted after a mid-epoch save and
+   resumed against the uninterrupted run;
+11. sampling: best-of-100 over 256 images (25,600 rows), max_words 20,
+   bf16, captions/s and the LSTM kernel's launches by route (42 a search,
+   all wgmma); at f32, best-of-8 with the same injected Gumbel noise on
+   the kernel and plain paths, captions held as in phase 5.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
 main path's shape, the least time the card could take for that work
 (``bound_ms``: bytes over 3.35 TB/s or operations over the peak rate of
 their type, whichever is larger), and its launches on the main path, in
-all and by route; the last line is ``{"ok": true, "device": {...}}``.  The script imports
+all, by route and by path; the last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or PIL, and exits nonzero without printing a result when
 no CUDA device is present.
 """
@@ -125,6 +141,33 @@ FC7_RTOL = 1e-4
 #  boundary, and that ulp propagates through 13 layers -> 3e-2
 FC7_BF16_RTOL = 3e-2
 
+# decoder training at the reference width (bench.py:133-148): B=256
+# captions of L=20 padded words, lengths 10-20, K=8 steps a dispatch from a
+# 10,000-row feature table on the card, dropout 0.4, bf16
+TRAIN_BATCH, TRAIN_LEN, TRAIN_K, TRAIN_ROWS = 256, 20, 8, 10_000
+TRAIN_DISPATCHES = 5        # timed, after one warm-up dispatch
+TRAIN_DROPOUT = 0.4
+#  one f32 step on the card (TF32 off) against the same code on the CPU, at
+#  a narrow width: the loss within 1e-5 relative, every gradient within
+#  1e-4 of its largest entry (f32 sums in another order)
+NARROW = dict(hidden=(128, 128), embed=64, cnn_feature_dim=256,
+              vocab_size=512)
+NARROW_BATCH, NARROW_LEN = 32, 12
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+#  bf16: the card's backward rounds the cotangent to bf16 before each
+#  product (ops/lstm.py), the CPU's multiplies it in f32: the gradients
+#  read 5.5e-3 of the largest entry (w_out; the CPU emulating the card's
+#  rounding gives the same) -> 2e-2; the loss within 1e-2 (reads 0)
+TRAIN_BF16_GRAD_RTOL, TRAIN_BF16_LOSS_RTOL = 2e-2, 1e-2
+#  the learnable set: its loss must fall below this share of its start
+LEARN_SHARE = 0.2
+#  an interrupted and resumed run against the uninterrupted one: the same
+#  computation, so expected bit-equal; held to 1e-6 of the largest entry
+RESUME_RTOL = 1e-6
+# best-of-N sampling (the paper's "sample 100, T=2"): 256 images x 100
+SAMPLE_IMAGES, SAMPLE_N, SAMPLE_T = 256, 100, 2.0
+SAMPLE_F32_N = 8            # the f32 kernel-vs-plain check: 256 x 8 rows
+
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"bf16": 989e12, "f32": 67e12}
@@ -180,6 +223,11 @@ def reset_counts(*fns) -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+
+def read_counts(*fns) -> dict[str, int]:
+    """The launch counters of these wrappers, by wrapper name."""
+    return {fn.__name__: fn.launches for fn in fns}
 
 
 def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
@@ -324,6 +372,10 @@ def phase_lstm(tree, rng) -> dict:
     cases += [(f"layer1 bfloat16 x{r // rows}", tree["lstm1/w"],
                tree["lstm1/b"], r, torch.bfloat16, big)
               for r in (4 * rows, 16 * rows)]
+    # the sampling path's rows: best-of-100 over 256 images
+    cases.append(("layer1 bfloat16 sampling", tree["lstm1/w"],
+                  tree["lstm1/b"], SAMPLE_IMAGES * SAMPLE_N, torch.bfloat16,
+                  big))
     ragged_w = (rng.standard_normal((37 + 70, 280)) * 0.1).astype(np.float32)
     cases += [(f"ragged 100x37x70 {dtype}".replace("torch.", ""), ragged_w,
                np.zeros(280, np.float32), 100, dtype, rng)
@@ -385,6 +437,7 @@ def phase_lstm(tree, rng) -> dict:
           f"{host['wgmma']:.2f} us (4 TMA maps encoded), wmma "
           f"{host['wmma']:.2f} us")
     ms, plain, lib, bnd, by = times["layer1 bfloat16"]
+    s_ms, s_plain, s_lib, s_bnd, _ = times["layer1 bfloat16 sampling"]
     return {"name": "fused_lstm_step", "route": "cuda",
             "source": "lrcn_tpu_torch/csrc/lstm_step.cu",
             "replaces": "lrcn_tpu/ops/pallas/lstm_step.py:63",
@@ -392,7 +445,10 @@ def phase_lstm(tree, rng) -> dict:
             "kernel_route": "wgmma", "max_abs_err": worst, "ms": ms,
             "plain_ms": plain, "library_ms": lib, "library": "torch.mm",
             "bound_ms": bnd, "bound_by": by,
-            "host_us": host["wgmma"]}
+            "host_us": host["wgmma"],
+            "sampling_shape": f"rows={SAMPLE_IMAGES * SAMPLE_N}",
+            "sampling_ms": s_ms, "sampling_plain_ms": s_plain,
+            "sampling_library_ms": s_lib, "sampling_bound_ms": s_bnd}
 
 
 def lse_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -590,7 +646,8 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
     from lrcn_tpu_torch.config import LRCNConfig
     from lrcn_tpu_torch.data.feature_store import FeatureStore
     from lrcn_tpu_torch.decode.beam import beam_search
-    from lrcn_tpu_torch.ops.kernels import fused_lstm_step, topk_logsumexp
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
     from lrcn_tpu_torch.serve import CaptionService
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -628,13 +685,13 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
     # the main path: every count starts at 0 here (warmup's batches were
     # recorded when their requests returned, so they are counted before)
     batches_before = sum(s["batches"] for s in svc.stats().values())
-    reset_counts(fused_lstm_step, topk_logsumexp)
+    reset_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(requests)) as pool:
         answers = list(pool.map(answer, requests))
     serve_s = time.perf_counter() - t0
-    launches = {"fused_lstm_step": fused_lstm_step.launches,
-                "topk_logsumexp": topk_logsumexp.launches}
+    launches = read_counts(fused_conv3x3_relu, fused_lstm_step,
+                           topk_logsumexp)
     by_route = {"fused_lstm_step": dict(fused_lstm_step.launches_by_route),
                 "topk_logsumexp": dict(topk_logsumexp.launches_by_route)}
     svc.close()     # joins the batcher threads: their stats are final
@@ -659,6 +716,8 @@ def phase_service(tree, rng) -> tuple[dict, torch.Tensor]:
           f"fused_lstm_step routes {by_route['fused_lstm_step']}")
     check_topk_routes(by_route["topk_logsumexp"], launches["topk_logsumexp"],
                       "service")
+    check(launches["fused_conv3x3_relu"] == 0,
+          "serving by id and features launched the conv kernel")
     print(f"[5 service] warmup {warm_s:.2f} s; {n_captions} captions for "
           f"{len(requests)} concurrent requests in {serve_s:.3f} s, "
           f"{searches} searches; launches {launches}, by route {by_route}; "
@@ -1011,6 +1070,370 @@ def phase_fc7_throughput(rng, smi: str) -> float:
     return rates[True]
 
 
+def learnable_set():
+    """``tests/test_train.py``'s synthetic set: 12 images, three captions,
+    each a function of its 24-dim feature."""
+    from lrcn_tpu_torch.core.tokenizer import Caption
+    from lrcn_tpu_torch.core.vocab import Vocab
+    from lrcn_tpu_torch.data.feature_store import FeatureStore
+
+    rng = np.random.default_rng(SEED)
+    vocab = Vocab([f"w{i}" for i in range(15)])
+    texts = [("w0", "w1", "w2"), ("w3", "w4", "w5", "w6"), ("w7", "w8")]
+    caps, store = [], FeatureStore(dim=24)
+    for i in range(12):
+        caps.append(Caption(i, texts[i % 3]))
+        feat = np.zeros(24, np.float32)
+        feat[(i % 3) * 8:(i % 3 + 1) * 8] = 1.0
+        store.add(i, feat + rng.normal(scale=0.01, size=24).astype(
+            np.float32))
+    return vocab, caps, store
+
+
+def train_setup():
+    """A trainer at the reference width (K=8, dropout 0.4, bf16) on the
+    card, its parameters and optimizer, 6 dispatches of synthetic batches
+    (random words, lengths 10-20) and a 10,000-row feature store."""
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.core.vocab import Vocab
+    from lrcn_tpu_torch.data.batcher import Batch
+    from lrcn_tpu_torch.data.feature_store import FeatureStore
+    from lrcn_tpu_torch.train.metrics import MetricsLogger
+    from lrcn_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(SEED + 4)
+    cfg = LRCNConfig(hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+                     vocab_size=VOCAB, dropout=TRAIN_DROPOUT,
+                     compute_dtype="bfloat16", seed=SEED + 1)
+    store = FeatureStore(dim=CNN_DIM, normalized=True)
+    raw = np.abs(rng.standard_normal((TRAIN_ROWS, CNN_DIM), np.float32))
+    for i, row in enumerate(raw / raw.sum(axis=1, keepdims=True)):
+        store.add(i, row)
+    batches = []
+    for _ in range((1 + TRAIN_DISPATCHES) * TRAIN_K):
+        lengths = rng.integers(10, TRAIN_LEN + 1, TRAIN_BATCH).astype(
+            np.int32)
+        tokens = rng.integers(3, VOCAB, (TRAIN_BATCH, TRAIN_LEN)).astype(
+            np.int32)
+        tokens[np.arange(TRAIN_LEN)[None, :] >= lengths[:, None]] = 0
+        batches.append(Batch(rng.integers(0, TRAIN_ROWS, TRAIN_BATCH),
+                             tokens, lengths))
+    vocab = Vocab([f"word{i}" for i in range(VOCAB - 3)])
+    trainer = Trainer(cfg, vocab, metrics=MetricsLogger(echo=False),
+                      device="cuda", steps_per_dispatch=TRAIN_K)
+    params, opt = trainer.init(SEED)
+    return trainer, params, opt, batches, store
+
+
+def train_step_flops(b_dim: int, t_dim: int) -> float:
+    """Operations of one training step at the reference width: 2 per
+    multiply-add, x3 for forward and backward, over the T*B positions
+    (layer-1 input and recurrent products, the factor projection, layer
+    2, the output projection) and the B rows of the CNN projection."""
+    h1, h2 = HIDDEN
+    f = -(-h2 // 2)
+    per_position = (EMBED * 4 * h1 + h1 * 4 * h1 + h1 * f
+                    + (2 * f + h2) * 4 * h2 + h2 * VOCAB)
+    return 3 * 2 * (t_dim * b_dim * per_position + b_dim * CNN_DIM * f)
+
+
+def narrow_step(device: str, tree: dict, batch, masks, dtype):
+    """One loss and gradient of the narrow model on ``device``."""
+    from lrcn_tpu_torch.models import lrcn
+    from lrcn_tpu_torch.models.lrcn import PARAM_KEYS, LRCNParams
+
+    params = LRCNParams.from_numpy(tree, device)
+    tokens, lengths, feats = (torch.from_numpy(a).to(device) for a in batch)
+    loss = lrcn.loss_fn(params, tokens, lengths, feats, pdrop=TRAIN_DROPOUT,
+                        drop_masks=tuple(m.to(device) for m in masks),
+                        compute_dtype=dtype)
+    loss.backward()
+    return loss.item(), {k: params[k].grad.cpu() for k in PARAM_KEYS}
+
+
+def phase_train_narrow() -> None:
+    """One step of the narrow model on the card against the CPU: f32 (TF32
+    off) and bf16, dropout masks shared."""
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.models import lrcn
+
+    cfg = LRCNConfig(**NARROW)
+    tree = lrcn.flat_tree(lrcn.init_params(
+        cfg, torch.Generator().manual_seed(SEED)))
+    rng = np.random.default_rng(SEED + 5)
+    lengths = rng.integers(1, NARROW_LEN + 1, NARROW_BATCH).astype(np.int32)
+    lengths[-2:] = -1                       # filler rows, as the batcher pads
+    tokens = rng.integers(3, cfg.vocab_size, (NARROW_BATCH, NARROW_LEN)
+                          ).astype(np.int32)
+    feats = rng.standard_normal((NARROW_BATCH, cfg.cnn_feature_dim)
+                                ).astype(np.float32)
+    masks = lrcn.dropout_masks(
+        (NARROW_LEN + 1, NARROW_BATCH, cfg.embed),
+        (NARROW_LEN + 1, NARROW_BATCH, 2 * cfg.factor_dim), TRAIN_DROPOUT,
+        torch.Generator().manual_seed(SEED))
+    batch = (tokens, lengths, feats)
+    for dtype, loss_rtol, grad_rtol in (
+            (torch.float32, TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL),
+            (torch.bfloat16, TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RTOL)):
+        card_loss, card = narrow_step("cuda", tree, batch, masks, dtype)
+        cpu_loss, cpu = narrow_step("cpu", tree, batch, masks, dtype)
+        loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        errs = {k: ((card[k] - cpu[k]).abs().max()
+                    / cpu[k].abs().max().clamp_min(1e-30)).item()
+                for k in cpu}
+        worst = max(errs, key=errs.get)
+        label = str(dtype).replace("torch.", "")
+        check(loss_err <= loss_rtol, f"narrow {label} step: loss {card_loss} "
+                                     f"on the card, {cpu_loss} on the CPU")
+        check(errs[worst] <= grad_rtol, f"narrow {label} step: gradient of "
+                                        f"{worst} off by {errs[worst]:.3g} "
+                                        f"of its largest entry")
+        print(f"[10 train] narrow {label} step (hidden {NARROW['hidden']}, "
+              f"B={NARROW_BATCH}, L={NARROW_LEN}, 2 filler rows, dropout "
+              f"{TRAIN_DROPOUT}) card vs CPU: loss {card_loss:.6f} vs "
+              f"{cpu_loss:.6f} (rel {loss_err:.3g}, tol {loss_rtol}); worst "
+              f"gradient {worst} {errs[worst]:.3g} of its largest entry "
+              f"(tol {grad_rtol})")
+
+
+def phase_train_learn() -> None:
+    """``Trainer.fit`` on the learnable set on the card: the loss falls,
+    the checkpoint loads and captions its images through the kernels, and
+    a run interrupted after a mid-epoch save and resumed ends where the
+    uninterrupted run ends."""
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.data.batcher import bucket_batches
+    from lrcn_tpu_torch.decode.beam import search
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+    from lrcn_tpu_torch.models.lrcn import PARAM_KEYS
+    from lrcn_tpu_torch.ops.kernels import fused_lstm_step, topk_logsumexp
+    from lrcn_tpu_torch.train import trainer as trainer_mod
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+    from lrcn_tpu_torch.train.metrics import MetricsLogger
+
+    vocab, caps, store = learnable_set()
+    cfg = LRCNConfig(hidden=(64, 64), embed=64, cnn_feature_dim=24,
+                     vocab_size=len(vocab), batch_size=4, dropout=0.0,
+                     lr=1e-2, seed=11)
+    batches = bucket_batches(caps, vocab, cfg.batch_size,
+                             apply_small_dataset_rule=False)
+    trainer = trainer_mod.Trainer(cfg, vocab, MetricsLogger(echo=False),
+                                  device="cuda")
+    params, opt = trainer.init(SEED)
+    loss0 = trainer.average_loss(params, batches, store)
+    path = os.path.join(WORK, "train_ckpt")
+    t0 = time.perf_counter()
+    trainer.fit(params, opt, batches, batches, store, store, 1, epochs=60,
+                eval_train_loss=False, savefile=path)
+    fit_s = time.perf_counter() - t0
+    loss1 = trainer.average_loss(params, batches, store)
+    check(loss1 < LEARN_SHARE * loss0, f"learnable set: loss {loss0:.4f} -> "
+                                       f"{loss1:.4f}")
+    ck = load_checkpoint(path, device="cuda")
+    check(ck["epoch"] == 60 and ck["opt_leaves"] is not None
+          and len(ck["opt_leaves"]) == 19, "learnable set: checkpoint")
+    ids = [c.image_id for c in caps]
+    feats = torch.from_numpy(store.gather(ids)).cuda()
+    reset_counts(fused_lstm_step, topk_logsumexp)
+    tokens, _ = search(ck["decoder"], feats, beam_width=BEAM,
+                       max_words=MAX_WORDS)
+    lines = detokenize_batch(tokens.cpu().numpy(), vocab)
+    launched = (fused_lstm_step.launches, topk_logsumexp.launches)
+    want = [" ".join(c.words) + " ." for c in caps]
+    right = sum(a == b for a, b in zip(lines, want))
+    check(launched == (2 * (MAX_WORDS + 1), MAX_WORDS + 1),
+          f"learnable set: search launched {launched}")
+    check(right == len(want), f"learnable set: {right}/{len(want)} captions "
+                              f"right: {lines}")
+    print(f"[10 train] learnable set (hidden (64, 64), 12 images, bf16): "
+          f"Trainer.fit 60 epochs x {len(batches)} steps in {fit_s:.2f} s, "
+          f"loss {loss0:.4f} -> {loss1:.4f} (need < {LEARN_SHARE} x); "
+          f"checkpoint epoch {ck['epoch']}, 19 optimizer leaves; beam-"
+          f"{BEAM} search through the kernels (launches LSTM, top-k "
+          f"{launched}): {right}/{len(want)} captions right, e.g. "
+          f"{lines[0]!r}")
+
+    # interrupted after its second mid-epoch save, then resumed
+    cfg_drop = dataclasses.replace(cfg, dropout=TRAIN_DROPOUT)
+    make = lambda: trainer_mod.Trainer(cfg_drop, vocab,
+                                       MetricsLogger(echo=False),
+                                       device="cuda", steps_per_dispatch=2)
+    t = make()
+    full, _ = t.fit(*t.init(SEED), batches, None, store, None, 1, epochs=3,
+                    eval_train_loss=False)
+
+    class Interrupted(Exception):
+        pass
+
+    real_save, saves = trainer_mod.save_checkpoint, []
+
+    def save_then_stop(*args, **kwargs):
+        real_save(*args, **kwargs)
+        if kwargs.get("position") is not None:
+            saves.append(1)
+            if len(saves) == 2:
+                raise Interrupted()
+
+    path = os.path.join(WORK, "resume_ckpt")
+    trainer_mod.save_checkpoint = save_then_stop
+    try:
+        t = make()
+        t.fit(*t.init(SEED), batches, None, store, None, 1, epochs=3,
+              eval_train_loss=False, savefile=path, ckpt_every=1)
+        check(False, "the interrupted run was not interrupted")
+    except Interrupted:
+        pass
+    finally:
+        trainer_mod.save_checkpoint = real_save
+    ck = load_checkpoint(path, device="cuda")
+    t = make()
+    resumed, _ = t.fit(*t.restore(ck["params"], ck["opt_leaves"]), batches,
+                       None, store, None, 1, epochs=3, eval_train_loss=False,
+                       resume_position=ck["position"])
+    errs = {k: ((resumed[k] - full[k]).abs().max()
+                / full[k].abs().max()).item() for k in PARAM_KEYS}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= RESUME_RTOL, f"resumed run: {worst} off by "
+                                      f"{errs[worst]:.3g}")
+    print(f"[10 train] mid-epoch resume (dropout {TRAIN_DROPOUT}, 2 steps a "
+          f"dispatch, 3 epochs, interrupted after the save at epoch "
+          f"{ck['position']['epoch']} dispatch {ck['position']['dispatch']}): "
+          f"largest difference from the uninterrupted run {errs[worst]:.3g} "
+          f"of its entry ({worst}; tol {RESUME_RTOL}); bit-equal: "
+          f"{all(torch.equal(resumed[k], full[k]) for k in PARAM_KEYS)}")
+
+
+def phase_train(smi: str) -> None:
+    """Training at the reference width: ms per step, words/s, peak memory
+    and the bound; then the narrow and learnable-set checks."""
+    from lrcn_tpu_torch.models import lrcn
+    from lrcn_tpu_torch.ops import lstm
+    from lrcn_tpu_torch.ops.kernels import (conv3x3_relu_reference,
+                                            fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+
+    # does cuBLAS's f32-out bf16 product carry a gradient here?  (the port
+    # goes through its own autograd Function either way)
+    a = torch.ones((2, 2), device="cuda", dtype=torch.bfloat16,
+                   requires_grad=True)
+    try:
+        torch.mm(a, a.detach(), out_dtype=torch.float32).sum().backward()
+        mm_grad = "yes"
+    except RuntimeError as e:
+        mm_grad = f"no ({str(e).splitlines()[0][:60]})"
+    a.grad = None
+    lstm.matmul(a, a.detach()).sum().backward()
+    check(a.grad is not None and a.grad.dtype == torch.bfloat16,
+          "the bf16 CUDA matmul carries no gradient")
+
+    trainer, params, opt, batches, store = train_setup()
+    key, shuffle = 1, np.random.default_rng(SEED)
+    trainer.train_epoch(params, opt, batches[:TRAIN_K], store, key, shuffle,
+                        log_every=0)            # warm-up dispatch
+    timed = batches[TRAIN_K:]
+    words = int(sum(np.maximum(b.lengths, 0).sum() for b in timed))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fused_lstm_step, topk_logsumexp, fused_conv3x3_relu)
+    t0 = time.perf_counter()
+    trainer.train_epoch(params, opt, timed, store, key, shuffle, log_every=0)
+    dt = time.perf_counter() - t0               # train_epoch synchronizes
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    check(sum(counts.values()) == 0, f"training launched hand-written "
+                                     f"kernels: {counts}")
+    loss = trainer.average_loss(params, batches[:TRAIN_K], store)
+    check(np.isfinite(loss) and all(torch.isfinite(params[k]).all()
+                                    for k in params),
+          f"training at the reference width: loss {loss}")
+    steps = len(timed)
+    ms = dt / steps * 1e3
+    flops = train_step_flops(TRAIN_BATCH, TRAIN_LEN + 1)
+    # bytes: the f32 parameters, their gradients and Adam's two moments,
+    # each read and written once a step, beside the products' operations
+    nbytes = 8 * 4 * lrcn.param_count(params)
+    bnd, by = bound(nbytes, flops, "bf16")
+    print(f"[10 train] reference width (hidden {HIDDEN}, embed {EMBED}, "
+          f"vocab {VOCAB}, {lrcn.param_count(params):,} parameters), bf16, "
+          f"B={TRAIN_BATCH}, L={TRAIN_LEN}, lengths 10-{TRAIN_LEN}, dropout "
+          f"{TRAIN_DROPOUT}, K={TRAIN_K} steps a dispatch, "
+          f"{TRAIN_ROWS}-row table on the card: {ms:.3f} ms per step, "
+          f"{words / dt:.1f} words/s over {TRAIN_DISPATCHES} dispatches "
+          f"({steps} steps, {dt:.3f} s) on {smi}; peak memory "
+          f"{peak / 2**30:.3f} GiB; bound {bnd:.4f} ms ({by}: "
+          f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s, {nbytes / 1e9:.2f} GB "
+          f"at 3.35 TB/s), {bnd / ms:.1%} of it; no hand-written kernel "
+          f"launched; loss after {steps + TRAIN_K} steps {loss:.4f}; "
+          f"torch.mm(out_dtype=f32) has a derivative: {mm_grad}")
+    del trainer, params, opt, store
+    phase_train_narrow()
+    phase_train_learn()
+    return counts
+
+
+def phase_sample(smi: str) -> dict:
+    """Best-of-100 sampling of 256 images at the reference width, bf16,
+    through the LSTM kernel; then kernel vs plain path at f32 with the same
+    Gumbel noise."""
+    from lrcn_tpu_torch.core.vocab import BOS_ID
+    from lrcn_tpu_torch.decode.sample import best_of_n_search, gumbel_noise
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(os.path.join(WORK, "ckpt"), device="cuda")
+    rng = np.random.default_rng(SEED + 6)
+    raw = np.abs(rng.standard_normal((SAMPLE_IMAGES, CNN_DIM), np.float32))
+    feats = torch.from_numpy(raw / raw.sum(axis=1, keepdims=True)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    run = lambda: best_of_n_search(
+        ck["decoder"], feats, n_samples=SAMPLE_N, temperature=SAMPLE_T,
+        max_words=MAX_WORDS, generator=gen)
+    run()[0].cpu()                                      # warm up
+    iters = 3
+    reset_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tokens, scores = run()
+    tokens = tokens.cpu()
+    dt = time.perf_counter() - t0
+    counts = read_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    launches = counts["fused_lstm_step"]
+    routes = dict(fused_lstm_step.launches_by_route)
+    steps = MAX_WORDS + 1
+    check(launches == 2 * steps * iters and routes["wgmma"] == launches,
+          f"sampling: LSTM launches {launches} by route {routes} in {iters} "
+          f"searches of {steps} steps")
+    check(counts["topk_logsumexp"] == counts["fused_conv3x3_relu"] == 0,
+          f"sampling launched the top-k or conv kernel: {counts}")
+    check(tokens.shape == (SAMPLE_IMAGES, MAX_WORDS + 2)
+          and bool((tokens[:, 0] == BOS_ID).all())
+          and bool(torch.isfinite(scores).all()), "sampling: malformed result")
+    rate = iters * SAMPLE_IMAGES / dt
+    print(f"[11 sample] best-of-{SAMPLE_N} at T={SAMPLE_T}, "
+          f"{SAMPLE_IMAGES} images ({SAMPLE_IMAGES * SAMPLE_N} rows), "
+          f"max_words {MAX_WORDS}, bf16: {rate:.1f} captions/s "
+          f"({dt / iters * 1e3:.1f} ms per search) on {smi}; LSTM kernel "
+          f"launches {launches // iters} a search, by route {routes}")
+
+    # kernel path against plain path in f32, TF32 off, the same noise
+    dec32 = load_checkpoint(os.path.join(WORK, "ckpt"), device="cuda",
+                            compute_dtype=torch.float32)["decoder"]
+    rows = SAMPLE_IMAGES * SAMPLE_F32_N
+    noise = gumbel_noise((steps, rows, VOCAB), gen)
+    out = {use: best_of_n_search(dec32, feats, n_samples=SAMPLE_F32_N,
+                                 temperature=SAMPLE_T, max_words=MAX_WORDS,
+                                 gumbel=noise, use_kernels=use)
+           for use in (True, False)}
+    equal, gap, distinct = check_captions(*out[True], *out[False],
+                                          ck["vocab"], "f32 sampling")
+    print(f"[11 sample f32] best-of-{SAMPLE_F32_N}, kernel vs plain path "
+          f"with the same Gumbel noise: {equal}/{SAMPLE_IMAGES} captions "
+          f"equal (need {CAPTION_AGREEMENT}); max score gap {gap:.3g}; "
+          f"{distinct} distinct captions")
+    return {"captions_per_s": rate, "searches": iters, "counts": counts,
+            "by_route": routes}
+
+
 # kernel name fragment -> the row of the profile table it adds to
 PROFILE_GROUPS = [
     ("lstm_step_wgmma", "fused LSTM step, wgmma route"),
@@ -1019,7 +1442,11 @@ PROFILE_GROUPS = [
     ("conv3x3_wgmma", "conv kernel, wgmma route (12 of 13 convs)"),
     ("conv3x3_kernel", "conv kernel, scalar route (conv1_1)"),
     ("gemm", "cuBLAS GEMMs"), ("nvjet", "cuBLAS GEMMs"),
-    ("reduce", "reductions (max pools, ...)"),
+    ("distribution", "random draws (dropout, Gumbel noise)"),
+    ("adam", "Adam (fused)"), ("softmax", "log_softmax (cross-entropy)"),
+    ("nll_loss", "NLL gather (cross-entropy)"),
+    ("embedding", "embedding backward"),
+    ("reduce", "reductions (max pools, norms, sums, ...)"),
     ("elementwise", "elementwise"), ("index", "gathers / index"),
     ("gather", "gathers / index"), ("copy", "copies / casts")]
 
@@ -1063,10 +1490,12 @@ def profile_window(label: str, run) -> None:
 
 def profile_paths(smi: str) -> None:
     """``--profile``: where the device time goes in one 16x256 and one
-    1x256 (a serving search) beam-3 decode and in fc7 extraction of 1x8
-    and 16x256 images, bf16, random weights."""
+    1x256 (a serving search) beam-3 decode, one best-of-100 sampling of
+    256 images, fc7 extraction of 1x8 and 16x256 images and one training
+    dispatch (K=8 steps at the reference width), bf16, random weights."""
     from lrcn_tpu_torch.data.images import normalize_and_fc7
     from lrcn_tpu_torch.decode.beam import beam_search_grouped
+    from lrcn_tpu_torch.decode.sample import best_of_n_search
     from lrcn_tpu_torch.models.lrcn import params_from_numpy
     from lrcn_tpu_torch.models.vgg import vgg_params_from_numpy
 
@@ -1081,6 +1510,12 @@ def profile_paths(smi: str) -> None:
                        f"on {smi}", lambda: beam_search_grouped(
                            decoder, feats[:groups], beam_width=BEAM,
                            max_words=MAX_WORDS))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    profile_window(f"best-of-{SAMPLE_N} sampling of {SAMPLE_IMAGES} images "
+                   f"bf16 on {smi}", lambda: best_of_n_search(
+                       decoder, feats[0, :SAMPLE_IMAGES], n_samples=SAMPLE_N,
+                       temperature=SAMPLE_T, max_words=MAX_WORDS,
+                       generator=gen))
     del decoder, feats
     vgg = vgg_params_from_numpy(random_vgg(rng), "cuda", torch.bfloat16)
     avg = torch.full((224, 224, 3), 117.0, device="cuda")
@@ -1090,6 +1525,14 @@ def profile_paths(smi: str) -> None:
         profile_window(f"fc7 {groups}x{batch} bf16 on {smi}",
                        lambda: normalize_and_fc7(vgg, images, avg))
         del images
+    del vgg
+    trainer, params, opt, batches, store = train_setup()
+    shuffle = np.random.default_rng(SEED)
+    profile_window(f"train dispatch, K={TRAIN_K} steps of B={TRAIN_BATCH} "
+                   f"L={TRAIN_LEN} bf16 on {smi}",
+                   lambda: trainer.train_epoch(params, opt,
+                                               batches[:TRAIN_K], store, 1,
+                                               shuffle, log_every=0))
 
 
 def main() -> None:
@@ -1112,13 +1555,21 @@ def main() -> None:
     phase_throughput(os.path.join(WORK, "ckpt"), feats, smi)
     kernels.append(phase_conv())
     image_launches, image_routes = phase_images(tree, rng)
+    by_path = {"service (phase 5)": dict(launches),
+               "images (phase 8)": image_launches}
     launches["fused_conv3x3_relu"] = image_launches["fused_conv3x3_relu"]
     by_route["fused_conv3x3_relu"] = image_routes["fused_conv3x3_relu"]
     phase_fc7_throughput(rng, smi)
+    by_path["training (phase 10)"] = phase_train(smi)
+    sampling = phase_sample(smi)
+    by_path[f"sampling (phase 11), {sampling['searches']} searches"] = (
+        sampling["counts"])
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["launches_by_route"] = by_route.get(
             entry["name"], {"cuda": entry["launches"]})
+        entry["launches_by_path"] = {path: counts[entry["name"]]
+                                     for path, counts in by_path.items()}
         check(entry["launches"] > 0, f"{entry['name']} never launched on "
                                      f"the main path")
     shutil.rmtree(WORK, ignore_errors=True)

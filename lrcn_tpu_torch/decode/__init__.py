@@ -5,6 +5,10 @@ from lrcn_tpu_torch.decode.beam import (  # noqa: F401
     greedy_search_grouped,
     rows_search,
 )
+from lrcn_tpu_torch.decode.sample import (  # noqa: F401
+    best_of_n_search,
+    sample_search,
+)
 from lrcn_tpu_torch.decode.writer import (  # noqa: F401
     caption_to_line,
     detokenize_batch,

@@ -7,7 +7,9 @@ line is the generated words joined by spaces with a trailing `` .``
 
 ``generate_captions`` decodes beam (or greedy, ``beam_width=1``) captions
 in groups of ``scan_depth`` batches of ``batch_size`` rows, each group one
-search on the device.  Sampling (``best_of_n_search``) is not ported yet.
+search on the device, or, with ``sample_n > 0``, the paper's best-of-N
+sampling (``decode/sample.py``), one batch of ``batch_size`` images a
+search.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from lrcn_tpu_torch import as_device
 from lrcn_tpu_torch.core.vocab import EOS_ID, Vocab
 from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
 from lrcn_tpu_torch.decode.beam import rows_search, search
+from lrcn_tpu_torch.decode.sample import best_of_n_search
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
 
 MAX_INFLIGHT = 4   # searches queued ahead of the oldest fetch
@@ -59,8 +62,17 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
                       store: FeatureStore, image_ids: Sequence[int], *,
                       device, beam_width: int = 3, max_words: int = 30,
                       batch_size: int = 64, scan_depth: int = 4,
-                      resident_store: bool | None = None) -> list[str]:
+                      resident_store: bool | None = None,
+                      sample_n: int = 0, temperature: float = 2.0,
+                      generator: torch.Generator | None = None) -> list[str]:
     """Decode captions for ``image_ids``; one line per id, in order.
+
+    Strategies: beam search (default), greedy (``beam_width=1``), or the
+    paper's best-of-N sampling (``sample_n > 0`` draws at
+    ``temperature``; the noise comes from ``generator``, on ``device``, a
+    seed-0 one by default).  Sampling decodes each batch of
+    ``batch_size`` images as one search of ``batch_size * sample_n`` rows
+    and ignores ``scan_depth`` and ``resident_store``.
 
     Features are L1-normalized unless the store says they already are
     (the reference's ``featsn`` files are pre-normalized; its live path
@@ -78,6 +90,10 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     if decoder.device != device:
         raise ValueError(f"decoder is on {decoder.device}, not {device}")
     normalize = not store.normalized
+    if sample_n > 0:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        scan_depth, resident_store = 1, False
     if resident_store is None:
         resident_store = 0 < len(store) <= len(image_ids)
     feat_dtype = decoder.compute_dtype   # the search casts to it first
@@ -111,8 +127,15 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
             feats = store.gather(chunk).astype(np.float32)
             if normalize:
                 feats = l1_normalize(feats)
-            tokens, _ = search(decoder, torch.from_numpy(feats).to(device),
-                               beam_width=beam_width, max_words=max_words)
+            feats = torch.from_numpy(feats).to(device)
+            if sample_n > 0:
+                tokens, _ = best_of_n_search(
+                    decoder, feats, n_samples=sample_n,
+                    temperature=temperature, max_words=max_words,
+                    generator=generator)
+            else:
+                tokens, _ = search(decoder, feats, beam_width=beam_width,
+                                   max_words=max_words)
         pending.append((tokens, n_real))
         if len(pending) > MAX_INFLIGHT:
             drain_one()

@@ -1,6 +1,8 @@
 from lrcn_tpu_torch.models import lrcn, vgg  # noqa: F401
 from lrcn_tpu_torch.models.lrcn import (  # noqa: F401
     LRCNDecoder,
+    LRCNParams,
+    init_params,
     params_from_numpy,
 )
 from lrcn_tpu_torch.models.vgg import (  # noqa: F401

@@ -12,11 +12,35 @@ multiplied in float32.  A float32 ``compute_dtype`` multiplies in full
 float32: callers that check f32 parity on CUDA keep TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, the counterpart of
 JAX's ``Precision.HIGHEST``).
+
+Every route is differentiable.  ``torch.mm(..., out_dtype=...)`` has no
+derivative, so where a gradient is wanted the bf16 CUDA route goes through
+``_MatmulF32Out``, whose backward runs both products on the tensor cores
+with bf16 operands (the cotangent rounded to bf16) and returns bf16
+gradients; the ``.to(compute_dtype)`` casts carry them back to the
+operands' own dtypes, as JAX's ``astype`` transposes do.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``a @ w`` of two bf16 CUDA matrices with a float32 result."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        grad_a = g @ w.t() if ctx.needs_input_grad[0] else None
+        grad_w = a.t() @ g if ctx.needs_input_grad[1] else None
+        return grad_a, grad_w
 
 
 def matmul(a: torch.Tensor, w: torch.Tensor,
@@ -27,6 +51,8 @@ def matmul(a: torch.Tensor, w: torch.Tensor,
     if compute_dtype == torch.float32:
         return a @ w
     if a.is_cuda:
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            return _MatmulF32Out.apply(a, w)
         return torch.mm(a, w, out_dtype=torch.float32)
     return a.float() @ w.float()
 
@@ -53,3 +79,18 @@ def lstm_step(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
              + matmul(h, w[x_dim:], compute_dtype)
              + b.float())
     return lstm_cell_update(gates, c)
+
+
+def lstm_recurrent_gates(w_h: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
+                         x_proj: torch.Tensor, *,
+                         compute_dtype: torch.dtype = torch.bfloat16
+                         ) -> torch.Tensor:
+    """Gates from a precomputed input projection plus the recurrent matmul:
+    ``x_proj`` is ``x @ w[:X]`` hoisted out of the time loop and ``w_h`` is
+    the recurrent half ``w[X:]``; this adds ``h @ w_h + b``.  The JAX
+    function slices ``w`` itself; here the caller slices once outside the
+    loop, so that autograd sums the steps' gradients on the slice instead of
+    scattering each into a full-size one."""
+    return (x_proj
+            + matmul(h, w_h, compute_dtype)
+            + b.float())

@@ -1,0 +1,411 @@
+"""Decoder training on one device (counterpart of
+``lrcn_tpu/train/trainer.py``, single device).
+
+Replaces the reference's host-driven training (``train!``/``train1``,
+lrcn.jl:223-405) with the JAX package's semantics: the same batches in the
+same order from the same numpy generator, the same masked loss, and
+optax's update rules, so that either package resumes the other's
+checkpoints:
+
+- ``Optimizer`` is ``optax.chain(clip_by_global_norm(gclip), adam(lr))``:
+  the gradients are multiplied by ``gclip / norm`` only when the global
+  norm reaches ``gclip`` (optax's rule; ``torch.nn.utils.clip_grad_norm_``
+  divides by ``norm + 1e-6``, a different update), then Adam with optax's
+  defaults (b1 0.9, b2 0.999, eps 1e-8, bias-corrected), which is
+  ``torch.optim.Adam``'s formula (fused on CUDA);
+- a step is one forward and backward of ``models.lrcn.loss_fn``, plain
+  PyTorch with autograd: the training path runs no hand-written kernel,
+  as the JAX package's reaches no Pallas kernel;
+- the feature table stays on the device (cached by weak reference) and
+  every step gathers its rows there by index (a COCO-size store, ~123k
+  fc7 rows, is 2 GB); with ``steps_per_dispatch = K > 1`` batches run in
+  ``chunk_same_shape`` order, then the per-shape tail, as in JAX, the K
+  steps are enqueued with no host synchronisation, and the losses are
+  read at most once a dispatch, at a log point.  The steps are the same
+  eager loop for every K: K sets the batch order, which JAX parity needs,
+  and how often the host waits;
+- per-step dropout draws from a ``torch.Generator`` seeded from (epoch key,
+  step index) through ``fold_in``, so a resumed run replays the same
+  stream; the epoch key is a 64-bit integer (this package's own stream:
+  it does not reproduce ``jax.random``'s bits);
+- per-epoch and every-``ckpt_every``-dispatch checkpoints, ``bestfile``,
+  train/val average loss and words/s, logged as JSONL.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+import weakref
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from lrcn_tpu_torch import as_device
+from lrcn_tpu_torch.config import LRCNConfig
+from lrcn_tpu_torch.core.vocab import Vocab
+from lrcn_tpu_torch.data.batcher import Batch, chunk_same_shape, iterate_epoch
+from lrcn_tpu_torch.data.feature_store import FeatureStore
+from lrcn_tpu_torch.models import lrcn
+from lrcn_tpu_torch.models.lrcn import LRCNParams
+from lrcn_tpu_torch.train.checkpoint import (OPT_KEYS, compute_dtype_of,
+                                             make_position, resume_start,
+                                             save_checkpoint)
+from lrcn_tpu_torch.train.metrics import MetricsLogger
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 64-bit key from ``key`` and ``data`` (splitmix64 of their
+    mix): the counterpart of ``jax.random.fold_in`` for this package's
+    integer keys."""
+    z = (key ^ ((data + 1) * 0x9E3779B97F4A7C15)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+class Optimizer:
+    """``optax.chain(clip_by_global_norm(gclip), adam(lr))`` over an
+    ``LRCNParams``: ``zero_grad``, backward, then ``step``.
+
+    ``state_leaves``/``load_leaves`` convert Adam's state from and to
+    optax's 19 leaves (count, then the moments in sorted key order), the
+    checkpoint format of both packages.
+    """
+
+    def __init__(self, params: LRCNParams, cfg: LRCNConfig):
+        self.params = [params[k] for k in OPT_KEYS]
+        self.gclip = float(cfg.gclip or 0.0)
+        fused = params.device.type == "cuda"
+        self.adam = torch.optim.Adam(self.params, lr=cfg.lr,
+                                     betas=(0.9, 0.999), eps=1e-8,
+                                     fused=fused or None)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        if self.gclip > 0:
+            grads = [p.grad for p in self.params]
+            # optax.global_norm, then clip_by_global_norm's select
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            below = norm < self.gclip
+            for g in grads:
+                g.copy_(torch.where(below, g, g / norm * self.gclip))
+        self.adam.step()
+
+    def state_leaves(self) -> list[np.ndarray]:
+        """Adam's state as optax's leaves: [count, mu..., nu...]."""
+        count, mu, nu = 0, [], []
+        for p in self.params:
+            state = self.adam.state.get(p)
+            if state:
+                count = int(state["step"])
+                mu.append(state["exp_avg"].detach().cpu().numpy())
+                nu.append(state["exp_avg_sq"].detach().cpu().numpy())
+            else:
+                zeros = np.zeros(tuple(p.shape), np.float32)
+                mu.append(zeros)
+                nu.append(zeros)
+        return [np.asarray(count, np.int32)] + mu + nu
+
+    def load_leaves(self, leaves: Sequence[np.ndarray]) -> None:
+        """Restore Adam's state from optax's leaves (a checkpoint's
+        ``opt_leaves``, written by either package)."""
+        n = len(self.params)
+        if len(leaves) != 1 + 2 * n:
+            raise ValueError(f"{len(leaves)} optimizer leaves; optax's Adam "
+                             f"over the decoder has {1 + 2 * n}")
+        count = float(np.asarray(leaves[0]))
+        state = {}
+        for i, p in enumerate(self.params):
+            mu, nu = (np.asarray(leaves[1 + j * n + i], np.float32)
+                      for j in (0, 1))
+            if mu.shape != tuple(p.shape) or nu.shape != tuple(p.shape):
+                raise ValueError(f"optimizer leaf for {OPT_KEYS[i]} has "
+                                 f"shape {mu.shape}, the parameter "
+                                 f"{tuple(p.shape)}")
+            state[i] = {"step": torch.tensor(count),
+                        "exp_avg": torch.from_numpy(mu),
+                        "exp_avg_sq": torch.from_numpy(nu)}
+        sd = self.adam.state_dict()
+        sd["state"] = state
+        self.adam.load_state_dict(sd)
+
+
+class Trainer:
+    """Trains the decoder on fc7 features on one device (``"cuda"`` unless
+    the caller passes another).  ``init``/``restore`` give the parameters
+    and optimizer that ``train_epoch`` and ``fit`` update in place and
+    return."""
+
+    def __init__(self, cfg: LRCNConfig, vocab: Vocab,
+                 metrics: MetricsLogger | None = None, device="cuda",
+                 steps_per_dispatch: int = 1):
+        self.cfg = cfg
+        self.vocab = vocab
+        self.metrics = metrics or MetricsLogger()
+        self.device = as_device(device)
+        self.compute_dtype = compute_dtype_of(cfg)
+        self.steps_per_dispatch = max(1, steps_per_dispatch)
+        self._table_cache = None   # (weakref to store, device table)
+
+    # --- parameters and optimizer ---
+
+    def init(self, generator: torch.Generator | int
+             ) -> tuple[LRCNParams, Optimizer]:
+        """Fresh parameters (``lrcn.init_params``, drawn on the CPU from
+        ``generator`` or a seed) on the device, and a fresh optimizer."""
+        if isinstance(generator, int):
+            generator = torch.Generator().manual_seed(generator)
+        params = lrcn.init_params(self.cfg, generator).to(self.device)
+        return params, Optimizer(params, self.cfg)
+
+    def restore(self, tree, opt_leaves=None
+                ) -> tuple[LRCNParams, Optimizer]:
+        """Parameters from a numpy tree (a checkpoint's ``params``) and an
+        optimizer with the checkpoint's ``opt_leaves``, if any."""
+        params = LRCNParams.from_numpy(tree, self.device)
+        opt = Optimizer(params, self.cfg)
+        if opt_leaves is not None:
+            opt.load_leaves(opt_leaves)
+        return params, opt
+
+    # --- one step ---
+
+    def _generator(self, key: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(key & (_MASK64 >> 1))
+        return gen
+
+    def _step(self, params: LRCNParams, opt: Optimizer, tokens, lengths,
+              feats, key: int) -> torch.Tensor:
+        """One optimizer step; returns the batch's loss on the device."""
+        pdrop = self.cfg.dropout
+        opt.zero_grad()
+        loss = lrcn.loss_fn(
+            params, tokens, lengths, feats, pdrop=pdrop,
+            generator=self._generator(key) if pdrop > 0 else None,
+            compute_dtype=self.compute_dtype)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def _dispatch(self, params, opt, tokens_k, lengths_k, rows_k, table,
+                  base_key: int, offset: int) -> torch.Tensor:
+        """K steps over stacked same-shape batches, features gathered from
+        the device-resident ``table`` by row; the step keys derive from
+        (base_key, offset + i).  Returns the K losses, not read."""
+        return torch.stack([
+            self._step(params, opt, tokens_k[i], lengths_k[i],
+                       table[rows_k[i]], fold_in(base_key, offset + i))
+            for i in range(tokens_k.shape[0])])
+
+    # --- host loop ---
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _put(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True) for a in arrays)
+
+    def _stacked(self, chunk: Sequence[Batch], store: FeatureStore):
+        """A chunk's host lengths, and its stacked tokens, lengths and
+        table rows on the device."""
+        tokens_k = np.stack([b.tokens for b in chunk])
+        lengths_k = np.stack([b.lengths for b in chunk])
+        rows_k = np.stack([store.rows(b.image_ids) for b in chunk]
+                          ).astype(np.int64)
+        return lengths_k, self._put(tokens_k, lengths_k, rows_k)
+
+    def _device_table(self, store: FeatureStore) -> torch.Tensor:
+        """The store's feature table on the device, cached by a weak
+        reference (an ``id(store)`` key could keep a dead store's table or
+        serve a stale one when CPython reuses the address)."""
+        cached = self._table_cache
+        if cached is None or cached[0]() is not store:
+            table = torch.from_numpy(
+                np.asarray(store.table(), np.float32)).to(self.device)
+            self._table_cache = (weakref.ref(store), table)
+        return self._table_cache[1]
+
+    def train_epoch(self, params: LRCNParams, opt: Optimizer,
+                    batches: Sequence[Batch], store: FeatureStore,
+                    rng_key: int, shuffle_rng: np.random.Generator,
+                    log_every: int = 200, start_dispatch: int = 0,
+                    ckpt_every: int | None = None, on_checkpoint=None
+                    ) -> tuple[LRCNParams, Optimizer, int]:
+        """One epoch over shuffled batches (reference: train1,
+        lrcn.jl:330-397); returns the next epoch's key with the updated
+        parameters and optimizer.
+
+        ``start_dispatch`` resumes mid-epoch: the batch order derives from
+        ``shuffle_rng``'s epoch-start state and every step key from (epoch
+        key, index), so the first N dispatches are skipped and the rest
+        replays the uninterrupted run.  ``on_checkpoint(dispatch, params,
+        opt)`` fires every ``ckpt_every`` dispatches.
+        """
+        t0 = time.time()
+        tokens_seen = 0
+        single_batches, single_rng, n_chunks = batches, shuffle_rng, 0
+
+        def words_per_sec():
+            return round(tokens_seen / (time.time() - t0), 1)
+
+        def maybe_ckpt(dispatch):
+            if ckpt_every and on_checkpoint and dispatch % ckpt_every == 0:
+                on_checkpoint(dispatch, params, opt)
+
+        k = self.steps_per_dispatch
+        table = self._device_table(store)
+        if k > 1:
+            chunks, tail = chunk_same_shape(batches, k, shuffle_rng)
+            n_chunks = len(chunks)
+            offset = 0
+            for ci, chunk in enumerate(chunks):
+                if ci < start_dispatch:     # resumed: already trained
+                    offset += len(chunk)
+                    continue
+                lengths_k, dev = self._stacked(chunk, store)
+                losses = self._dispatch(params, opt, *dev, table, rng_key,
+                                        offset)
+                offset += len(chunk)
+                tokens_seen += int(np.sum(np.maximum(lengths_k, 0)))
+                if log_every and (ci * len(chunk)) % log_every < len(chunk):
+                    self.metrics.log(event="train", batch=ci * len(chunk),
+                                     loss=round(float(losses[-1]), 4),
+                                     words_per_sec=words_per_sec())
+                maybe_ckpt(ci + 1)
+            rng_key = fold_in(rng_key, offset + 1)
+            single_batches, single_rng = tail, None   # already shuffled
+        # single steps: materialize the (possibly shuffled) order so that a
+        # resume can slice past completed batches
+        order = list(iterate_epoch(single_batches, single_rng))
+        skip = max(0, start_dispatch - n_chunks)
+        base = rng_key
+        for j in range(skip, len(order)):
+            _, (tokens, lengths, rows) = self._stacked([order[j]], store)
+            loss = self._step(params, opt, tokens[0], lengths[0],
+                              table[rows[0]], fold_in(base, j))
+            tokens_seen += int(np.sum(np.maximum(order[j].lengths, 0)))
+            if log_every and j % log_every == 0:
+                self.metrics.log(event="train", batch=j,
+                                 loss=round(float(loss), 4),
+                                 words_per_sec=words_per_sec())
+            maybe_ckpt(n_chunks + j + 1)
+        rng_key = fold_in(base, len(order) + 1)
+        self._sync()
+        self.metrics.log(event="epoch_train_done", batches=len(batches),
+                         words_per_sec=words_per_sec())
+        return params, opt, rng_key
+
+    @torch.no_grad()
+    def average_loss(self, params: LRCNParams, batches: Sequence[Batch],
+                     store: FeatureStore) -> float:
+        """Dataset-level mean NLL (reference: average_loss,
+        lrcn.jl:407-486).  With ``steps_per_dispatch > 1`` same-shape
+        batches evaluate K at a time, the per-shape remainders one at a
+        time, all from the device-resident table; every partial sum is
+        fetched after all are queued."""
+        table = self._device_table(store)
+        chunks = [[b] for b in batches]
+        if self.steps_per_dispatch > 1:
+            chunks, single = chunk_same_shape(batches,
+                                              self.steps_per_dispatch, None)
+            chunks += [[b] for b in single]
+        partials = []
+        for chunk in chunks:
+            _, (tokens_k, lengths_k, rows_k) = self._stacked(chunk, store)
+            part = torch.zeros(2, device=self.device)
+            for i in range(len(chunk)):
+                part = part + torch.stack(lrcn.loss_total_count(
+                    params, tokens_k[i], lengths_k[i], table[rows_k[i]],
+                    compute_dtype=self.compute_dtype))
+            partials.append(part)
+        total, count = 0.0, 0.0
+        for t, c in (p.tolist() for p in partials):
+            total += t
+            count += c
+        return total / max(count, 1.0)
+
+    def fit(self, params: LRCNParams, opt: Optimizer,
+            train_batches: Sequence[Batch],
+            val_batches: Sequence[Batch] | None, train_store: FeatureStore,
+            val_store: FeatureStore | None, rng_key: int, *,
+            epochs: int | None = None, savefile: str | None = None,
+            bestfile: str | None = None, eval_train_loss: bool = True,
+            ckpt_every: int | None = None,
+            resume_position: dict | None = None,
+            completed_epochs: int = 0) -> tuple[LRCNParams, Optimizer]:
+        """Full training loop (reference: train!, lrcn.jl:223-246), with
+        the JAX package's semantics.
+
+        ``bestfile``: also checkpoint whenever the epoch's validation loss
+        improves.  ``ckpt_every``: also checkpoint every N dispatches
+        within an epoch, with a resume position; passing it back as
+        ``resume_position`` replays the interrupted epoch from that
+        dispatch, bit-exact with the uninterrupted run.  On any resume
+        ``epochs`` is the total budget: a mid-epoch position carries its
+        epoch, an epoch-complete checkpoint passes its ``epoch`` as
+        ``completed_epochs``.
+        """
+        epochs = epochs if epochs is not None else self.cfg.epochs
+        shuffle_rng = np.random.default_rng(
+            self.cfg.seed if self.cfg.seed > 0 else None)
+        best_val = float("inf")
+        geometry = {"steps_per_dispatch": self.steps_per_dispatch,
+                    "n_batches": len(train_batches)}
+        start_epoch, start_dispatch, rng_key = resume_start(
+            resume_position, shuffle_rng, rng_key, geometry)
+        if not resume_position and completed_epochs:
+            start_epoch = completed_epochs + 1
+        resumed = bool(resume_position) or completed_epochs > 0
+        end_epoch = epochs if resumed else start_epoch + epochs - 1
+        if start_epoch > end_epoch:
+            print(f"train: checkpoint already covers {completed_epochs} "
+                  f"of the {epochs}-epoch budget; nothing to do (raise "
+                  f"epochs to continue training)")
+            return params, opt
+        for epoch in range(start_epoch, end_epoch + 1):
+            epoch_state = copy.deepcopy(shuffle_rng.bit_generator.state)
+            epoch_key = rng_key
+
+            def on_ckpt(dispatch, p, o, _epoch=epoch, _state=epoch_state,
+                        _key=epoch_key):
+                save_checkpoint(
+                    savefile, p, self.vocab, self.cfg, opt_state=o,
+                    epoch=_epoch - 1,
+                    position=make_position(_epoch, dispatch, _state, _key,
+                                           geometry))
+                self.metrics.log(event="ckpt", epoch=_epoch,
+                                 dispatch=dispatch)
+
+            params, opt, rng_key = self.train_epoch(
+                params, opt, train_batches, train_store, rng_key,
+                shuffle_rng,
+                start_dispatch=start_dispatch if epoch == start_epoch else 0,
+                ckpt_every=ckpt_every if savefile else None,
+                on_checkpoint=on_ckpt if savefile else None)
+            if savefile:
+                save_checkpoint(savefile, params, self.vocab, self.cfg,
+                                opt_state=opt, epoch=epoch)
+            record = {"event": "epoch", "epoch": epoch}
+            if eval_train_loss:
+                record["train_loss"] = round(
+                    self.average_loss(params, train_batches, train_store), 4)
+            if val_batches is not None and val_store is not None:
+                val_loss = self.average_loss(params, val_batches, val_store)
+                record["val_loss"] = round(val_loss, 4)
+                if bestfile and val_loss < best_val:
+                    best_val = val_loss
+                    save_checkpoint(bestfile, params, self.vocab, self.cfg,
+                                    opt_state=opt, epoch=epoch)
+                    record["best"] = True
+            self.metrics.log(**record)
+        return params, opt
+

@@ -31,6 +31,18 @@ SLICE_MODULES = [
     "lrcn_tpu_torch.train.checkpoint",
     "lrcn_tpu_torch.serve.batcher",
     "lrcn_tpu_torch.serve.service",
+    "lrcn_tpu_torch.core.tokenizer",
+    "lrcn_tpu_torch.data.batcher",
+    "lrcn_tpu_torch.data.pipeline",
+    "lrcn_tpu_torch.decode.sample",
+    "lrcn_tpu_torch.train.metrics",
+    "lrcn_tpu_torch.train.trainer",
+    "lrcn_tpu_torch.core",
+    "lrcn_tpu_torch.data",
+    "lrcn_tpu_torch.decode",
+    "lrcn_tpu_torch.models",
+    "lrcn_tpu_torch.ops",
+    "lrcn_tpu_torch.train",
 ]
 
 
