@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port's caption-serving paths once on one GPU.
 
-    python3 chip_smoke.py              # from the repository root, one sm_90 card
+    python3 chip_smoke.py              # from the repository root, one card
     python3 chip_smoke.py --profile    # instead: profile the 16x256 and
                                        # 1x256 decodes, sampling, fc7
-                                       # extraction and a training
-                                       # dispatch (torch.profiler)
+                                       # extraction, a training and a
+                                       # joint dispatch (torch.profiler)
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
@@ -71,14 +71,27 @@ exits nonzero:
 11. sampling: best-of-100 over 256 images (25,600 rows), max_words 20,
    bf16, captions/s and the LSTM kernel's launches by route (42 a search,
    all wgmma); at f32, best-of-8 with the same injected Gumbel noise on
-   the kernel and plain paths, captions held as in phase 5.
+   the kernel and plain paths, captions held as in phase 5;
+12. joint fine-tuning: ``JointTrainStep.multi_step`` at the reference
+   width (full VGG-16 and the 2x1000 decoder, B=128, L=20, lengths 10-20,
+   K=4, dropout 0.4, bf16, remat; ms per step, images/s, peak memory with
+   and without remat, the step's bound, and no hand-written kernel
+   launched); a narrow f32 joint step on the card against the CPU (loss
+   and all 39 gradients); a step with the CNN frozen under the clip (the
+   CNN bit-equal); ``JointTrainer.fit`` on 12 images of 3 colours (the
+   loss below a fifth), an interrupted and resumed run (cuDNN
+   deterministic), and the fine-tuned checkpoint served by image through
+   the three kernels (13 conv launches an encoder batch, every caption
+   right); whether the native image loader and BLEU core built, and native
+   BLEU against Python BLEU.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
 main path's shape, the least time the card could take for that work
 (``bound_ms``: bytes over 3.35 TB/s or operations over the peak rate of
 their type, whichever is larger), and its launches on the main path, in
-all, by route and by path; the last line is ``{"ok": true, "device": {...}}``.  The script imports
+all, by route and by path; the last line is ``{"ok": true, "device":
+{...}}``.  The script imports
 nothing of JAX or PIL, and exits nonzero without printing a result when
 no CUDA device is present.
 """
@@ -167,6 +180,32 @@ RESUME_RTOL = 1e-6
 # best-of-N sampling (the paper's "sample 100, T=2"): 256 images x 100
 SAMPLE_IMAGES, SAMPLE_N, SAMPLE_T = 256, 100, 2.0
 SAMPLE_F32_N = 8            # the f32 kernel-vs-plain check: 256 x 8 rows
+
+# joint CNN+decoder fine-tuning at the reference width
+# (benchmarks/bench_joint.py:26-34): full VGG-16 (He-normal from a seed,
+# mean image 117) and the 2x1000 decoder, B=128 captions of L=20, lengths
+# 10-20, K=4 steps a dispatch, dropout 0.4, bf16, VGG rematerialised
+JOINT_BATCH, JOINT_LEN, JOINT_K = 128, 20, 4
+JOINT_DISPATCHES = 2        # timed, after one warm-up dispatch
+JOINT_MEAN = 117.0
+VGG16_MACS = 15.47e9        # multiply-adds of one 224x224 VGG-16 forward
+#  the narrow joint model (card vs CPU, freeze, the learnable set): VGG at
+#  a quarter width (16-128 channels, 8 of 13 convs on the conv kernel's
+#  wgmma route when served), fc width 64, decoder hidden 64
+JOINT_NARROW = dict(hidden=(64, 64), embed=64, cnn_feature_dim=64)
+JOINT_NARROW_VGG = dict(width_multiplier=0.25, fc_dim=64)
+JOINT_NARROW_BATCH = 4
+#  one f32 joint step on the card (TF32 off) against the CPU: the loss
+#  within 1e-5 relative; every gradient within 1e-2 of its largest entry
+#  (the CPU reads 3.9e-6 against JAX; on the card cuDNN's own algorithms
+#  sum in another order, and a conv bias's gradient sums 200,704
+#  positions of cotangents that cancel: conv1_1/b read 1.77e-3)
+JOINT_LOSS_RTOL, JOINT_GRAD_RTOL = 1e-5, 1e-2
+#  the learnable set: 12 images of 3 colours, each kind its caption.  At
+#  the default CNN rate (lr / 10 = 1e-3) Adam reshapes the random VGG
+#  until every image gives the same caption, in both packages (the loss
+#  stalls at the image-blind 0.277, checked on the CPU); 1e-4 fine-tunes it
+JOINT_EPOCHS, JOINT_CNN_LR = 40, 1e-4
 
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
@@ -1434,8 +1473,442 @@ def phase_sample(smi: str) -> dict:
             "by_route": routes}
 
 
+def joint_setup():
+    """A joint step at the reference width on the card (full VGG-16, the
+    2x1000 decoder, K=4, dropout 0.4, bf16, mean image 117), its
+    parameters and optimizer, and one chunk of K synthetic batches."""
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.models.joint import (JointTrainStep,
+                                             make_joint_optimizer)
+
+    cfg = LRCNConfig(hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+                     vocab_size=VOCAB, dropout=TRAIN_DROPOUT,
+                     compute_dtype="bfloat16", seed=SEED + 1)
+    avg = np.full((224, 224, 3), JOINT_MEAN, np.float32)
+    step = JointTrainStep(cfg, make_joint_optimizer(cfg), remat_cnn=True,
+                          average_image=avg, device="cuda")
+    params, opt_state = step.init(SEED)
+    rng = np.random.default_rng(SEED + 7)
+    k, b, l = JOINT_K, JOINT_BATCH, JOINT_LEN
+    images = rng.integers(0, 256, (k, b, 224, 224, 3), np.uint8)
+    lengths = rng.integers(10, l + 1, (k, b)).astype(np.int32)
+    tokens = rng.integers(3, VOCAB, (k, b, l)).astype(np.int32)
+    tokens[np.arange(l)[None, None, :] >= lengths[..., None]] = 0
+    return step, params, opt_state, step.shard_chunk(images, tokens, lengths)
+
+
+def joint_images() -> tuple[np.ndarray, list]:
+    """The joint learnable set: 12 uint8 images of three kinds (a red, a
+    green and a blue field with noise), each kind its caption of
+    ``learnable_set``'s."""
+    from lrcn_tpu_torch.core.tokenizer import Caption
+
+    rng = np.random.default_rng(SEED + 8)
+    texts = [("w0", "w1", "w2"), ("w3", "w4", "w5", "w6"), ("w7", "w8")]
+    images = rng.integers(0, 60, (12, 224, 224, 3)).astype(np.uint8)
+    for i in range(12):
+        images[i, :, :, i % 3] += 180
+    return images, [Caption(i, texts[i % 3]) for i in range(12)]
+
+
+def joint_narrow_step(device: str, tree: dict, batch, masks) -> tuple:
+    """One f32 loss and gradient of the narrow joint model on ``device``."""
+    from lrcn_tpu_torch.models.joint import JointParams, joint_loss
+    from lrcn_tpu_torch.train.joint import load_joint_params
+
+    params = load_joint_params(tree, device)
+    images, tokens, lengths = (torch.from_numpy(a).to(device) for a in batch)
+    loss = joint_loss(params, images.float() - JOINT_MEAN, tokens, lengths,
+                      pdrop=TRAIN_DROPOUT,
+                      drop_masks=tuple(m.to(device) for m in masks),
+                      compute_dtype=torch.float32)
+    loss.backward()
+    grads = {f"{part}/{k}": p.grad.cpu()
+             for part, ps in zip(JointParams._fields, params)
+             for k, p in ps.items()}
+    return loss.item(), grads
+
+
+def phase_joint_narrow(cfg, tree) -> None:
+    """One f32 narrow joint step on the card against the CPU (dropout
+    masks shared), and a step with the CNN frozen under the clip."""
+    from lrcn_tpu_torch.models import lrcn
+    from lrcn_tpu_torch.models.joint import (JointTrainStep,
+                                             make_joint_optimizer)
+    from lrcn_tpu_torch.train.joint import load_joint_params
+
+    rng = np.random.default_rng(SEED + 9)
+    b, l = JOINT_NARROW_BATCH, 8
+    images = rng.integers(0, 256, (b, 224, 224, 3)).astype(np.uint8)
+    lengths = rng.integers(1, l + 1, b).astype(np.int32)
+    lengths[-1] = -1                        # a filler row, as batches pad
+    tokens = rng.integers(3, cfg.vocab_size, (b, l)).astype(np.int32)
+    masks = lrcn.dropout_masks((l + 1, b, cfg.embed),
+                               (l + 1, b, 2 * cfg.factor_dim), TRAIN_DROPOUT,
+                               torch.Generator().manual_seed(SEED))
+    batch = (images, tokens, lengths)
+    card_loss, card = joint_narrow_step("cuda", tree, batch, masks)
+    cpu_loss, cpu = joint_narrow_step("cpu", tree, batch, masks)
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    errs = {k: ((card[k] - cpu[k]).abs().max()
+                / cpu[k].abs().max().clamp_min(1e-30)).item() for k in cpu}
+    worst = max(errs, key=errs.get)
+    rest = max(v for k, v in errs.items()
+               if not (k.startswith("cnn/") and k.endswith("/b")))
+    print(f"[12 joint] narrow f32 step (VGG width "
+          f"{JOINT_NARROW_VGG['width_multiplier']}, fc "
+          f"{JOINT_NARROW_VGG['fc_dim']}, hidden {cfg.hidden}, B={b}, 1 "
+          f"filler row, dropout {TRAIN_DROPOUT}) card vs CPU: loss "
+          f"{card_loss:.6f} vs {cpu_loss:.6f} (rel {loss_err:.3g}, tol "
+          f"{JOINT_LOSS_RTOL}); worst of 39 gradients {worst} "
+          f"{errs[worst]:.3g} of its largest entry (tol {JOINT_GRAD_RTOL}),"
+          f" worst but the conv biases' {rest:.3g}")
+    check(len(errs) == 39 and loss_err <= JOINT_LOSS_RTOL,
+          f"narrow joint step: loss {card_loss} on the card, {cpu_loss} on "
+          f"the CPU")
+    check(errs[worst] <= JOINT_GRAD_RTOL, f"narrow joint step: gradient of "
+                                          f"{worst} off by {errs[worst]:.3g}")
+
+    # the CNN frozen under the clip: its gradient enters the global norm,
+    # and it stays bit-equal
+    frozen = dataclasses.replace(cfg, gclip=0.05, dropout=0.0)
+    step = JointTrainStep(frozen, make_joint_optimizer(frozen,
+                                                       freeze_cnn=True),
+                          average_image=np.full((224, 224, 3), JOINT_MEAN,
+                                                np.float32), device="cuda")
+    params = load_joint_params(tree, "cuda")
+    state = step.opt.init(params)
+    before = {k: p.detach().clone() for k, p in params.cnn.items()}
+    dec_before = params.decoder["w_out"].detach().clone()
+    step(params, state, *step.shard_batch(*batch), 0)
+    check(len(state.grad_params()) == 39
+          and all(torch.equal(params.cnn[k], v) for k, v in before.items())
+          and len(state.state_leaves()) == 19
+          and not torch.equal(params.decoder["w_out"], dec_before),
+          "freeze: the CNN moved, or the decoder did not")
+    print("[12 joint] freeze_cnn step under gclip 0.05: the CNN's 30 "
+          "tensors bit-equal, the decoder moved, 19 optimizer leaves")
+
+
+def phase_joint_learn(cfg, vocab) -> dict:
+    """``JointTrainer.fit`` on the learnable set: the loss falls below a
+    fifth of its start; an interrupted and resumed run against the
+    uninterrupted one (cuDNN deterministic); the fine-tuned checkpoint
+    served by image through the three kernels.  Returns the serving
+    path's launch counts."""
+    from lrcn_tpu_torch.data.batcher import bucket_batches
+    from lrcn_tpu_torch.evaluation.bleu import multi_bleu
+    from lrcn_tpu_torch.native import bleu_library, imageloader_library
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.ops.kernels.conv3x3 import conv3x3_route
+    from lrcn_tpu_torch.ops.kernels.lstm_step import lstm_step_route
+    from lrcn_tpu_torch.ops.kernels.topk_lse import topk_lse_route
+    from lrcn_tpu_torch.models.vgg import VGG16_LAYOUT
+    from lrcn_tpu_torch.serve import CaptionService
+    from lrcn_tpu_torch.train import joint as joint_mod
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+    from lrcn_tpu_torch.train.metrics import MetricsLogger
+
+    images, caps = joint_images()
+    by_id = {c.image_id: images[c.image_id] for c in caps}
+
+    class ArrayTrainer(joint_mod.JointTrainer):
+        """The joint trainer fed arrays by id (no image files here)."""
+
+        def _load_images(self, batch):
+            return np.stack([by_id[int(i)] for i in batch.image_ids])
+
+    avg = np.full((224, 224, 3), JOINT_MEAN, np.float32)
+    batches = bucket_batches(caps, vocab, cfg.batch_size,
+                             apply_small_dataset_rule=False)
+    make = lambda c, k=1: ArrayTrainer(c, vocab, {}, avg,
+                                       MetricsLogger(echo=False),
+                                       cnn_lr=JOINT_CNN_LR,
+                                       steps_per_dispatch=k, device="cuda")
+    trainer = make(cfg)
+    params, opt_state = trainer.init(SEED, vgg_params=_narrow_vgg())
+    conv_before = params.cnn["conv3_1/w"].detach().clone()
+    loss0 = trainer.average_loss(params, batches)
+    path = os.path.join(WORK, "joint_ckpt")
+    os.makedirs(path)
+    np.save(os.path.join(path, "average_image.npy"), avg)
+    t0 = time.perf_counter()
+    trainer.fit(params, opt_state, batches, batches, 1, epochs=JOINT_EPOCHS,
+                savefile=path)
+    fit_s = time.perf_counter() - t0
+    loss1 = trainer.average_loss(params, batches)
+    moved = (params.cnn["conv3_1/w"] - conv_before).abs().max().item()
+    check(loss1 < LEARN_SHARE * loss0 and moved > 0,
+          f"joint learnable set: loss {loss0:.4f} -> {loss1:.4f}, the CNN "
+          f"moved {moved}")
+    print(f"[12 joint] learnable set (12 images of 3 colours, VGG width "
+          f"{JOINT_NARROW_VGG['width_multiplier']}, hidden {cfg.hidden}, "
+          f"bf16, B={cfg.batch_size}, lr {cfg.lr}, CNN lr {JOINT_CNN_LR}): "
+          f"JointTrainer.fit {JOINT_EPOCHS} epochs x {len(batches)} steps in "
+          f"{fit_s:.2f} s, loss {loss0:.4f} -> {loss1:.4f} (need < "
+          f"{LEARN_SHARE} x); conv3_1/w moved up to {moved:.3g}")
+
+    # interrupted after its second mid-epoch save, then resumed, with
+    # cuDNN's deterministic algorithms (its weight-gradient algorithms may
+    # otherwise add in another order from run to run)
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg_drop = dataclasses.replace(cfg, dropout=TRAIN_DROPOUT)
+        t = make(cfg_drop, 2)
+        full, _ = t.fit(*t.init(SEED, vgg_params=_narrow_vgg()), batches,
+                        None, 1, epochs=3)
+
+        class Interrupted(Exception):
+            pass
+
+        real_save, saves = joint_mod.save_checkpoint, []
+
+        def save_then_stop(*args, **kwargs):
+            real_save(*args, **kwargs)
+            if kwargs.get("position") is not None:
+                saves.append(1)
+                if len(saves) == 2:
+                    raise Interrupted()
+
+        rpath = os.path.join(WORK, "joint_resume")
+        joint_mod.save_checkpoint = save_then_stop
+        try:
+            t = make(cfg_drop, 2)
+            t.fit(*t.init(SEED, vgg_params=_narrow_vgg()), batches, None, 1,
+                  epochs=3, savefile=rpath, ckpt_every=1)
+            check(False, "the interrupted joint run was not interrupted")
+        except Interrupted:
+            pass
+        finally:
+            joint_mod.save_checkpoint = real_save
+        ck = load_checkpoint(rpath, device="cuda")
+        t = make(cfg_drop, 2)
+        resumed, _ = t.fit(*t.restore(ck["params"], ck["opt_leaves"]),
+                           batches, None, 1, epochs=3,
+                           resume_position=ck["position"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    pairs = [(f"{part}/{k}", full_set[k], resumed_set[k])
+             for part, full_set, resumed_set in zip(("cnn", "decoder"), full,
+                                                    resumed)
+             for k in full_set.keys()]
+    errs = {name: ((b - a).abs().max() / a.abs().max().clamp_min(1e-30)
+                   ).item() for name, a, b in pairs}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= RESUME_RTOL, f"resumed joint run: {worst} off by "
+                                      f"{errs[worst]:.3g}")
+    print(f"[12 joint] mid-epoch resume (dropout {TRAIN_DROPOUT}, 2 steps a "
+          f"dispatch, 3 epochs, cudnn.deterministic, interrupted after the "
+          f"save at epoch {ck['position']['epoch']} dispatch "
+          f"{ck['position']['dispatch']}, {len(ck['opt_leaves'])} optimizer "
+          f"leaves): largest difference from the uninterrupted run "
+          f"{errs[worst]:.3g} of its entry ({worst}; tol {RESUME_RTOL}); "
+          f"bit-equal: {all(torch.equal(a, b) for _, a, b in pairs)}")
+
+    # the fine-tuned checkpoint, served by image through the three kernels
+    ck = load_checkpoint(path, device="cuda")
+    check(ck["vgg"] is not None and ck["epoch"] == JOINT_EPOCHS
+          and len(ck["opt_leaves"]) == 80
+          and bool((ck["average_image"] == JOINT_MEAN).all()),
+          "joint checkpoint: encoder, epoch, 80 leaves, mean image")
+    svc = CaptionService(ck["cfg"], ck["decoder"], ck["vocab"],
+                         device="cuda", vgg=ck["vgg"],
+                         average_image=ck["average_image"], beam_width=BEAM,
+                         max_words=MAX_WORDS, decode_batch=16,
+                         encode_batch=ENCODE_BATCH)
+    svc.warmup()
+    before = {k: v["batches"] for k, v in svc.stats().items()}
+    reset_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    lines = svc.caption_images(list(images))
+    counts = read_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    routes = {fn.__name__: dict(fn.launches_by_route)
+              for fn in (fused_conv3x3_relu, fused_lstm_step,
+                         topk_logsumexp)}
+    svc.close()
+    after = svc.stats()
+    encodes = after["encode"]["batches"] - before["encode"]
+    searches = after["decode"]["batches"] - before["decode"]
+    steps = MAX_WORDS + 1
+    meta = lambda *shape: torch.empty(shape, device="meta",
+                                      dtype=torch.bfloat16)
+    vgg, dec = ck["vgg"], ck["decoder"]
+    conv_want: dict[str, int] = {}
+    size = 224
+    for entry in VGG16_LAYOUT:
+        if entry == "pool":
+            size //= 2
+            continue
+        w = getattr(vgg, f"{entry[0]}_w")
+        route = conv3x3_route(meta(1, size, size, w.shape[2]), w.to("meta"))
+        conv_want[route] = conv_want.get(route, 0) + encodes
+    rows = 16 * BEAM
+    h1, h2 = dec.hidden
+    lstm_want = {lstm_step_route(dec.lstm1_w.to("meta"), meta(rows, h1),
+                                 meta(rows, h1), meta(rows, cfg.embed)): 1,
+                 lstm_step_route(dec.lstm2_w.to("meta"), meta(rows, h2),
+                                 meta(rows, h2),
+                                 meta(rows, 2 * cfg.factor_dim)): 1}
+    topk_want = topk_lse_route(meta(rows, len(vocab)), BEAM)
+    got_conv = {r: n for r, n in routes["fused_conv3x3_relu"].items() if n}
+    check(encodes == 2 and counts["fused_conv3x3_relu"] == 13 * encodes
+          and got_conv == conv_want,
+          f"joint service: conv launches {counts['fused_conv3x3_relu']} by "
+          f"route {got_conv} in {encodes} encoder batches (want {conv_want})")
+    check(searches > 0 and counts["fused_lstm_step"] == 2 * steps * searches
+          and set(k for k, n in routes["fused_lstm_step"].items() if n)
+          == set(lstm_want),
+          f"joint service: LSTM launches {counts['fused_lstm_step']} by "
+          f"route {routes['fused_lstm_step']} in {searches} searches")
+    check(counts["topk_logsumexp"] == steps * searches
+          and routes["topk_logsumexp"][topk_want] == steps * searches,
+          f"joint service: top-k launches by route "
+          f"{routes['topk_logsumexp']}, want all on {topk_want}")
+    want = [" ".join(c.words) + " ." for c in caps]
+    right = sum(a == b for a, b in zip(lines, want))
+    check(right == len(want), f"joint service: {right}/{len(want)} captions "
+                              f"right: {lines}")
+    print(f"[12 joint] fine-tuned checkpoint (epoch {ck['epoch']}, 80 "
+          f"optimizer leaves, mean image {JOINT_MEAN}) served by image: "
+          f"{right}/{len(want)} captions right, {encodes} encoder batches "
+          f"of {ENCODE_BATCH}, {searches} search(es); launches {counts}, by "
+          f"route {routes}")
+
+    # the host libraries on this machine; native BLEU against Python BLEU
+    loader, bleu_lib = imageloader_library(), bleu_library()
+    refs = [[w] for w in want]
+    hyps = lines[::-1]              # a wrong order, so BLEU is not 1
+    note = "not built"
+    if bleu_lib is not None:
+        native = multi_bleu(hyps, refs)
+        saved = os.environ.get("LRCN_NATIVE")
+        os.environ["LRCN_NATIVE"] = "0"
+        try:
+            python = multi_bleu(hyps, refs)
+        finally:
+            if saved is None:
+                del os.environ["LRCN_NATIVE"]
+            else:
+                os.environ["LRCN_NATIVE"] = saved
+        check(native == python, f"native BLEU {native} != Python {python}")
+        note = f"native == Python: {native.format()}"
+    print(f"[12 joint] host libraries: imageloader "
+          f"{'built' if loader is not None else 'not built'}, bleu "
+          f"{'built' if bleu_lib is not None else 'not built'}; BLEU of the "
+          f"served captions against the set's (reversed): {note}")
+    return counts
+
+
+def _narrow_vgg():
+    """The narrow joint model's VGG, drawn from the seed."""
+    from lrcn_tpu_torch.models.vgg import init_vgg_params
+
+    return init_vgg_params(torch.Generator().manual_seed(SEED + 2),
+                           **JOINT_NARROW_VGG)
+
+
+def joint_step_flops(b_dim: int, t_dim: int) -> float:
+    """Operations of one rematerialised joint step at the reference width:
+    4 VGG-16 forwards' worth a image (the forward, its recompute and a
+    backward of twice a forward), 2 per multiply-add, and the decoder's
+    step (``train_step_flops``)."""
+    return b_dim * 4 * 2 * VGG16_MACS + train_step_flops(b_dim, t_dim)
+
+
+def phase_joint(smi: str) -> dict:
+    """Joint fine-tuning at the reference width: ms per step, images/s,
+    peak memory with and without remat, the bound, and no hand-written
+    kernel launched; then the narrow, freeze and learnable-set checks."""
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.core.vocab import Vocab
+    from lrcn_tpu_torch.models import lrcn, vgg
+    from lrcn_tpu_torch.models.joint import JointTrainStep
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.train.trainer import fold_in
+
+    t0 = time.perf_counter()
+    step, params, opt_state, chunk = joint_setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    key = 2
+    _, _, losses = step.multi_step(params, opt_state, *chunk, key, 0)
+    losses.cpu()                                # warm-up dispatch
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fused_lstm_step, topk_logsumexp, fused_conv3x3_relu)
+    t0 = time.perf_counter()
+    for d in range(JOINT_DISPATCHES):
+        _, _, losses = step.multi_step(params, opt_state, *chunk,
+                                       fold_in(key, d + 1), 0)
+    losses = losses.cpu()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    check(sum(counts.values()) == 0, f"the joint step launched hand-written "
+                                     f"kernels: {counts}")
+    check(bool(torch.isfinite(losses).all())
+          and all(bool(torch.isfinite(p).all()) for ps in params
+                  for p in ps.values()),
+          f"joint step at the reference width: losses {losses.tolist()}")
+    steps = JOINT_DISPATCHES * JOINT_K
+    ms = dt / steps * 1e3
+    flops = joint_step_flops(JOINT_BATCH, JOINT_LEN + 1)
+    n_params = vgg.vgg_param_count(params.cnn) + lrcn.param_count(
+        params.decoder)
+    # bytes: the f32 parameters, their gradients and Adam's two moments,
+    # each read and written once a step, beside the products' operations
+    nbytes = 8 * 4 * n_params
+    bnd, by = bound(nbytes, flops, "bf16")
+
+    # the same step without remat: its peak memory and time
+    plain = JointTrainStep(step.cfg, step.opt, remat_cnn=False,
+                           average_image=np.full((224, 224, 3), JOINT_MEAN,
+                                                 np.float32), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _, _, nr_losses = plain.multi_step(params, opt_state, *chunk,
+                                       fold_in(key, 99), 0)
+    nr_losses = nr_losses.cpu()
+    nr_ms = (time.perf_counter() - t1) / JOINT_K * 1e3
+    nr_peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(nr_losses).all()), "joint step without remat")
+    print(f"[12 joint] reference width (VGG-16 "
+          f"{vgg.vgg_param_count(params.cnn):,} + decoder "
+          f"{lrcn.param_count(params.decoder):,} parameters, "
+          f"mean image {JOINT_MEAN}), bf16, B={JOINT_BATCH}, L={JOINT_LEN}, "
+          f"lengths 10-{JOINT_LEN}, dropout {TRAIN_DROPOUT}, K={JOINT_K} "
+          f"steps a dispatch, remat: {ms:.3f} ms per step, "
+          f"{JOINT_BATCH / ms * 1e3:.1f} images/s over {JOINT_DISPATCHES} "
+          f"dispatches ({steps} steps, {dt:.3f} s) on {smi}; peak memory "
+          f"{peak / 2**30:.3f} GiB with remat, {nr_peak / 2**30:.3f} GiB "
+          f"without ({nr_ms:.3f} ms per step, one dispatch); bound "
+          f"{bnd:.4f} ms ({by}: {flops / 1e12:.2f} TFLOP at 989 TFLOP/s, "
+          f"{nbytes / 1e9:.2f} GB at 3.35 TB/s), {bnd / ms:.1%} of it; no "
+          f"hand-written kernel launched; losses {losses.tolist()}; set-up "
+          f"{setup_s:.1f} s")
+    del step, plain, params, opt_state, chunk
+
+    vocab = Vocab([f"w{i}" for i in range(15)])
+    cfg = LRCNConfig(**JOINT_NARROW, vocab_size=len(vocab),
+                     batch_size=JOINT_NARROW_BATCH, dropout=0.0, lr=1e-2,
+                     compute_dtype="float32", seed=11)
+    narrow = {**{f"cnn/{k}": v
+                 for k, v in lrcn.flat_tree(_narrow_vgg()).items()},
+              **{f"decoder/{k}": v for k, v in lrcn.flat_tree(
+                  lrcn.init_params(cfg, torch.Generator().manual_seed(
+                      SEED))).items()}}
+    phase_joint_narrow(cfg, narrow)
+    serving = phase_joint_learn(
+        dataclasses.replace(cfg, compute_dtype="bfloat16"), vocab)
+    return {"step": counts, "serving": serving}
+
+
 # kernel name fragment -> the row of the profile table it adds to
 PROFILE_GROUPS = [
+    ("fprop", "cuDNN convolutions, forward"),
+    ("dgrad", "cuDNN convolutions, data gradient"),
+    ("wgrad", "cuDNN convolutions, weight gradient"),
+    ("max_pool", "max pools and their backward"),
     ("lstm_step_wgmma", "fused LSTM step, wgmma route"),
     ("lstm_step_kernel", "fused LSTM step, wmma/fma route"),
     ("topk_lse", "top-k + log-sum-exp kernel"),
@@ -1491,8 +1964,9 @@ def profile_window(label: str, run) -> None:
 def profile_paths(smi: str) -> None:
     """``--profile``: where the device time goes in one 16x256 and one
     1x256 (a serving search) beam-3 decode, one best-of-100 sampling of
-    256 images, fc7 extraction of 1x8 and 16x256 images and one training
-    dispatch (K=8 steps at the reference width), bf16, random weights."""
+    256 images, fc7 extraction of 1x8 and 16x256 images, one training
+    dispatch (K=8 steps at the reference width) and one joint fine-tuning
+    dispatch (K=4 steps of B=128), bf16, random weights."""
     from lrcn_tpu_torch.data.images import normalize_and_fc7
     from lrcn_tpu_torch.decode.beam import beam_search_grouped
     from lrcn_tpu_torch.decode.sample import best_of_n_search
@@ -1533,6 +2007,11 @@ def profile_paths(smi: str) -> None:
                    lambda: trainer.train_epoch(params, opt,
                                                batches[:TRAIN_K], store, 1,
                                                shuffle, log_every=0))
+    del trainer, params, opt, batches, store
+    step, jparams, jopt, chunk = joint_setup()
+    profile_window(f"joint dispatch, K={JOINT_K} steps of B={JOINT_BATCH} "
+                   f"L={JOINT_LEN} bf16, remat, on {smi}",
+                   lambda: step.multi_step(jparams, jopt, *chunk, 2, 0))
 
 
 def main() -> None:
@@ -1564,6 +2043,9 @@ def main() -> None:
     sampling = phase_sample(smi)
     by_path[f"sampling (phase 11), {sampling['searches']} searches"] = (
         sampling["counts"])
+    joint = phase_joint(smi)
+    by_path["joint step (phase 12)"] = joint["step"]
+    by_path["joint (phase 12)"] = joint["serving"]
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["launches_by_route"] = by_route.get(

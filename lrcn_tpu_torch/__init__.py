@@ -7,23 +7,29 @@ path.  This package imports ``torch`` and nothing of JAX or ``lrcn_tpu``.
 Layer map:
 
 - ``lrcn_tpu_torch.serve``    dynamic batcher + ``CaptionService``
-- ``lrcn_tpu_torch.train``    decoder ``Trainer`` (optax's Adam and clip
-  rules), checkpoints in the JAX package's format (read and written,
-  optimizer state included), metrics logger
+- ``lrcn_tpu_torch.train``    decoder ``Trainer`` and joint CNN+decoder
+  ``JointTrainer`` (optax's Adam and clip rules), checkpoints in the JAX
+  package's format (read and written, optimizer state included), metrics
+  logger
 - ``lrcn_tpu_torch.decode``   batched beam / greedy search, best-of-N
-  sampling, writers
+  sampling, writers and eval-file helpers
 - ``lrcn_tpu_torch.models``   the LRCN decoder (``LRCNDecoder`` for
-  decoding, ``LRCNParams`` and the teacher-forced loss for training) and
-  the VGG-16 encoder
+  decoding, ``LRCNParams`` and the teacher-forced loss for training), the
+  VGG-16 encoder (``VGGEncoder``; ``VGGParams`` for training) and the
+  joint step (``models/joint.py``)
 - ``lrcn_tpu_torch.ops``      plain LSTM ops; ``ops/kernels`` the CUDA
   kernels (fused LSTM step, top-k + log-sum-exp, conv3x3) and their build
 - ``lrcn_tpu_torch.data``     the on-disk feature store, caption batching,
   device prefetch, images
+- ``lrcn_tpu_torch.evaluation`` multi-BLEU and reference files
+- ``lrcn_tpu_torch.native``   the host C++ libraries (JPEG loader, BLEU
+  core), built with g++ at first use
 - ``lrcn_tpu_torch.core``     vocabulary and caption tokenizer
 
 Kernels run on CUDA tensors; on CPU tensors every kernel wrapper computes
 its plain PyTorch version, which is what the CPU tests hold against JAX.
-Training runs no kernel: its loss is plain PyTorch with autograd.
+Training runs no kernel: its losses (decoder and joint) are plain PyTorch
+with autograd.
 """
 
 from __future__ import annotations

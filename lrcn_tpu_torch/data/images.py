@@ -4,12 +4,14 @@
 Host half, copied from the JAX module: decode (optionally downloading a
 URL, lrcn.jl:751-754), resize so the SHORTEST side is 224 with the
 reference's integer arithmetic ``(dim * 224) ÷ min(dims)`` (lrcn.jl:756),
-center-crop 224x224 (:757-759), grayscale -> 3 channels (:761-763).  PIL
-is imported inside the functions that decode, so importing this module
-needs no PIL.  The JAX module's threaded C++ JPEG loader
-(``lrcn_tpu/native/imageloader.cpp``) is not ported: every format decodes
-through PIL here, which gives the same pixels as the JAX module for PNGs
-and may differ from its native path for JPEGs.
+center-crop 224x224 (:757-759), grayscale -> 3 channels (:761-763).
+JPEGs decode first through the threaded C++ loader
+(``lrcn_tpu_torch/native/imageloader.cpp``, a byte-identical copy of the
+JAX package's), and a row it cannot decode is rescued through PIL, as in
+the JAX module; so both packages give the same pixels for every file.
+Other formats (PNG, ...), and every file when the loader is unavailable
+(no libjpeg, ``LRCN_NATIVE=0``), decode through PIL.  PIL is imported
+inside the functions that use it, so importing this module needs no PIL.
 
 Device half: uint8 -> float32, minus the mean image (lrcn.jl:771), then
 VGG-16 to fc7, over groups of batches with one upload and one readback
@@ -70,22 +72,85 @@ def resize_crop(image: np.ndarray) -> np.ndarray:
     return arr[i0:i0 + CROP, j0:j0 + CROP]
 
 
+def load_batch_native(paths: Sequence[str], n_threads: int | None = None
+                      ) -> tuple[np.ndarray, np.ndarray] | None:
+    """Decode+resize+crop a batch of JPEGs with the C++ threaded loader.
+
+    Returns (images (N,224,224,3) uint8, ok (N,) bool) or None when the
+    native library is unavailable.  Rows whose decode failed are zeroed and
+    flagged; callers fall back to PIL for those.
+    """
+    import ctypes
+
+    from lrcn_tpu_torch.native import imageloader_library
+
+    lib = imageloader_library()
+    if lib is None:
+        return None
+    if n_threads is None:
+        n_threads = min(16, os.cpu_count() or 1)
+    n = len(paths)
+    out = np.zeros((n, CROP, CROP, 3), np.uint8)
+    status = (ctypes.c_int * n)()
+    c_paths = (ctypes.c_char_p * n)(
+        *[os.fsencode(p) for p in paths])
+    lib.lrcn_load_images(
+        c_paths, n,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), status,
+        n_threads)
+    ok = np.asarray(status[:], np.int32) == 0
+    return out, ok
+
+
+def decode_blobs_native(blobs: Sequence[bytes],
+                        n_threads: int | None = None
+                        ) -> tuple[np.ndarray, np.ndarray] | None:
+    """Decode+resize+crop encoded JPEG blobs with the C++ threaded
+    loader, from memory.  Returns (images (N,224,224,3) uint8, ok (N,)
+    bool) or None when the native library is unavailable."""
+    import ctypes
+
+    from lrcn_tpu_torch.native import imageloader_library
+
+    lib = imageloader_library()
+    if lib is None:
+        return None
+    if n_threads is None:
+        n_threads = min(16, os.cpu_count() or 1)
+    n = len(blobs)
+    out = np.zeros((n, CROP, CROP, 3), np.uint8)
+    status = (ctypes.c_int * n)()
+    c_blobs = (ctypes.c_char_p * n)(*blobs)
+    sizes = (ctypes.c_longlong * n)(*[len(b) for b in blobs])
+    lib.lrcn_load_images_mem(
+        c_blobs, sizes, n,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), status,
+        n_threads)
+    ok = np.asarray(status[:], np.int32) == 0
+    return out, ok
+
+
 def load_blobs(blobs: Sequence[bytes]) -> tuple[np.ndarray, np.ndarray]:
     """Encoded image blobs -> ((N,224,224,3) uint8, ok (N,) bool).
 
-    Decodes through PIL; ok[i] is False for a blob PIL cannot read, and
-    that row stays zero.  ``CaptionService.caption_image_bytes`` runs
-    through here."""
+    Threaded native JPEG decode first, PIL rescue per failed row (PNG
+    and other formats); ok[i] is False only when both fail, and that row
+    stays zero.  ``CaptionService.caption_image_bytes`` runs through
+    here."""
     import io
 
     from PIL import Image
 
     n = len(blobs)
-    imgs = np.zeros((n, CROP, CROP, 3), np.uint8)
-    ok = np.zeros(n, bool)
-    for idx, blob in enumerate(blobs):
+    native = decode_blobs_native(blobs)
+    if native is not None:
+        imgs, ok = native
+    else:
+        imgs = np.zeros((n, CROP, CROP, 3), np.uint8)
+        ok = np.zeros(n, bool)
+    for idx in np.flatnonzero(~ok):
         try:
-            with Image.open(io.BytesIO(blob)) as im:
+            with Image.open(io.BytesIO(blobs[idx])) as im:
                 imgs[idx] = resize_crop(
                     np.asarray(im.convert("RGB"), np.uint8))
             ok[idx] = True
@@ -95,13 +160,28 @@ def load_blobs(blobs: Sequence[bytes]) -> tuple[np.ndarray, np.ndarray]:
 
 
 def load_preprocessed(path: str) -> np.ndarray:
-    """One image -> (224,224,3) uint8."""
+    """One image -> (224,224,3) uint8: native JPEG fast path, PIL fallback."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        native = load_batch_native([path])
+        if native is not None and native[1][0]:
+            return native[0][0]
     return resize_crop(decode_image(path))
 
 
 def load_images(paths: Sequence[str]) -> np.ndarray:
-    """Decode+resize+crop a batch -> (N, 224, 224, 3) uint8."""
-    return np.stack([load_preprocessed(p) for p in paths])
+    """Decode+resize+crop a batch -> (N, 224, 224, 3) uint8.
+
+    Native threaded JPEG loader when every path is a JPEG, with PIL
+    rescue for rows whose native decode fails; plain PIL otherwise.
+    """
+    if all(p.lower().endswith((".jpg", ".jpeg")) for p in paths):
+        native = load_batch_native(paths)
+        if native is not None:
+            imgs, ok = native
+            for idx in np.flatnonzero(~ok):   # PIL rescue per failure
+                imgs[idx] = resize_crop(decode_image(paths[idx]))
+            return imgs
+    return np.stack([resize_crop(decode_image(p)) for p in paths])
 
 
 def normalize_batch(images_u8: torch.Tensor, average_image: torch.Tensor

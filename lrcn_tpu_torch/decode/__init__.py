@@ -13,4 +13,7 @@ from lrcn_tpu_torch.decode.writer import (  # noqa: F401
     caption_to_line,
     detokenize_batch,
     generate_captions,
+    pick_eval_ids,
+    pick_eval_ids_from_captions,
+    write_candidate_files,
 )

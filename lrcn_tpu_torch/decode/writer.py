@@ -1,9 +1,10 @@
 """Caption generation driver (counterpart of ``lrcn_tpu/decode/writer.py``).
 
-``caption_to_line`` and ``detokenize_batch`` are copies of the JAX
-package's: they are numpy-only, but their module imports JAX.  Each caption
-line is the generated words joined by spaces with a trailing `` .``
-(lrcn.jl:634-640).
+``caption_to_line``, ``detokenize_batch`` and the eval-file helpers
+(``write_candidate_files``, ``pick_eval_ids``,
+``pick_eval_ids_from_captions``) are copies of the JAX package's: they are
+numpy-only, but their module imports JAX.  Each caption line is the
+generated words joined by spaces with a trailing `` .`` (lrcn.jl:634-640).
 
 ``generate_captions`` decodes beam (or greedy, ``beam_width=1``) captions
 in groups of ``scan_depth`` batches of ``batch_size`` rows, each group one
@@ -63,6 +64,7 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
                       device, beam_width: int = 3, max_words: int = 30,
                       batch_size: int = 64, scan_depth: int = 4,
                       resident_store: bool | None = None,
+                      normalize: bool | None = None,
                       sample_n: int = 0, temperature: float = 2.0,
                       generator: torch.Generator | None = None) -> list[str]:
     """Decode captions for ``image_ids``; one line per id, in order.
@@ -74,9 +76,9 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     ``batch_size`` images as one search of ``batch_size * sample_n`` rows
     and ignores ``scan_depth`` and ``resident_store``.
 
-    Features are L1-normalized unless the store says they already are
-    (the reference's ``featsn`` files are pre-normalized; its live path
-    normalizes at lrcn.jl:597).
+    ``normalize``: L1-normalize the features on the fly; by default
+    unless the store says they already are (the reference's ``featsn``
+    files are pre-normalized; its live path normalizes at lrcn.jl:597).
 
     ``scan_depth`` batches decode as one search; up to ``MAX_INFLIGHT``
     searches are queued on the device before the oldest one's tokens are
@@ -89,7 +91,8 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     device = as_device(device)
     if decoder.device != device:
         raise ValueError(f"decoder is on {decoder.device}, not {device}")
-    normalize = not store.normalized
+    if normalize is None:
+        normalize = not store.normalized
     if sample_n > 0:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -142,3 +145,63 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     while pending:
         drain_one()
     return lines
+
+
+def write_candidate_files(lines: Sequence[str], image_ids: Sequence[int],
+                          candidates_path: str, ids_path: str) -> None:
+    """Write the caption + id files consumed by the eval harness
+    (reference: lrcn.jl:133-139,600)."""
+    with open(candidates_path, "w") as f:
+        for line in lines:
+            f.write(line + "\n")
+    with open(ids_path, "w") as f:
+        for image_id in image_ids:
+            f.write(f"{int(image_id)}\n")
+
+
+def pick_eval_ids(image_ids: Sequence[int], capnumber: int,
+                  rng: np.random.Generator) -> list[int]:
+    """Choose ``capnumber`` unique image ids at random (lrcn.jl:142-150)."""
+    unique = list(dict.fromkeys(int(i) for i in image_ids))
+    rng.shuffle(unique)
+    return unique[:capnumber]
+
+
+def pick_eval_ids_from_captions(captions: Sequence, capnumber: int,
+                                rng: np.random.Generator,
+                                store: FeatureStore | None = None
+                                ) -> list[int]:
+    """The reference's eval-id sampling protocol (lrcn.jl:142-150).
+
+    Shuffle the *held-out caption split* (``caption_dicts[2]`` for COCO val,
+    ``caption_dicts[3]`` for the Flickr test split, lrcn.jl:132-150) and
+    collect unique image ids until ``capnumber`` are chosen.  Sampling from
+    the caption split — never from the feature store — guarantees no
+    training image is ever captioned for evaluation, even against a
+    full-corpus store (e.g. the Karpathy import covers all 30k Flickr
+    images).
+
+    Ids whose features are missing from ``store`` are skipped with a
+    warning (the reference instead dies mid-run on the first missing
+    feature, lrcn.jl:603).
+    """
+    order = list(captions)
+    rng.shuffle(order)
+    ids: list[int] = []
+    seen: set[int] = set()
+    missing = 0
+    for cap in order:
+        image_id = int(cap.image_id)
+        if image_id in seen:
+            continue
+        seen.add(image_id)
+        if store is not None and image_id not in store:
+            missing += 1
+            continue
+        ids.append(image_id)
+        if len(ids) == capnumber:
+            break
+    if missing:
+        print(f"generate: skipped {missing} held-out ids with no stored "
+              f"features")
+    return ids

@@ -122,13 +122,21 @@ class LRCNParams(nn.ParameterDict):
                            compute_dtype)
 
 
-def flat_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+def _is_tree(value) -> bool:
+    return (isinstance(value, (Mapping, nn.ParameterDict))
+            or hasattr(value, "_asdict"))
+
+
+def flat_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
     """A nested or flat parameter tree (numpy arrays or tensors, e.g. an
-    ``LRCNParams``) as '/'-joined keys -> numpy, a host copy."""
+    ``LRCNParams``, or a NamedTuple of such, e.g. a ``JointParams``) as
+    '/'-joined keys -> numpy, a host copy."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
     out = {}
     for key, value in tree.items():
         name = f"{prefix}{key}"
-        if isinstance(value, Mapping):
+        if _is_tree(value):
             out.update(flat_tree(value, name + "/"))
         elif isinstance(value, torch.Tensor):
             out[name] = value.detach().cpu().numpy()

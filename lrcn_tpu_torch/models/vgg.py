@@ -1,5 +1,5 @@
 """VGG-16 image encoder to fc7 on PyTorch (counterpart of
-``lrcn_tpu/models/vgg.py``), inference side.
+``lrcn_tpu/models/vgg.py``).
 
 Same network, layout and numerics as the JAX package (reference
 MatConvNet walk, lrcn.jl:696-748): 13 3x3 convolutions (pad 1,
@@ -16,6 +16,19 @@ fc6 is held as a ``(7*7*C, 4096)`` matrix, the NHWC flatten of its
 ``(7, 7, C, 4096)`` filters, which is the JAX einsum
 ``bhwc,hwcf->bf`` (``vgg.py:144-147``) as one matmul.
 
+Training (the joint fine-tune, ``models/joint.py``): ``VGGParams`` holds
+the same weights as float32 ``nn.Parameter``s under the checkpoint keys
+(``conv1_1/w`` ... ``fc7/b``, fc6 kept ``(7, 7, C, F)``), and
+``vgg16_fc7_train`` is the differentiable counterpart of the JAX
+package's ``vgg16_fc7_fn(..., use_pallas=False)``: each conv is
+``F.conv2d`` (cuDNN on the card, the counterpart of XLA's
+``conv_general_dilated``) with its output in the compute dtype, then the
+bias added in the compute dtype, then ReLU, as XLA's path rounds.  The
+conv kernel has no backward, as the Pallas kernel has no VJP, so the
+joint loss never reaches it.  ``init_vgg_params`` draws the JAX package's
+random initialization (He-normal convs, 0.01-normal fc6/fc7, zero biases)
+on the CPU from a ``torch.Generator``.
+
 ``load_matconvnet`` and its helpers are copied from the JAX module
 (scipy and numpy only).
 """
@@ -26,6 +39,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lrcn_tpu_torch.models.lrcn import flat_tree
@@ -95,12 +109,121 @@ def vgg_params_from_numpy(tree: Mapping, device, compute_dtype: torch.dtype
     '/'-joined keys (``"conv1_1/w"``).
     """
     flat = flat_tree(tree)
-    keys = [f"{n}/{p}" for n in (*CONV_NAMES, "fc6", "fc7") for p in "wb"]
-    missing = [k for k in keys if k not in flat]
+    missing = [k for k in PARAM_KEYS if k not in flat]
     if missing:
         raise KeyError(f"VGG parameter tree lacks {missing}")
-    params = {k: torch.tensor(np.asarray(flat[k], np.float32)) for k in keys}
+    params = {k: torch.tensor(np.asarray(flat[k], np.float32))
+              for k in PARAM_KEYS}
     return VGGEncoder(params, compute_dtype).to(torch.device(device))
+
+
+PARAM_KEYS = tuple(f"{n}/{p}" for n in (*CONV_NAMES, "fc6", "fc7")
+                   for p in "wb")
+
+
+class VGGParams(nn.ParameterDict):
+    """The encoder's trainable float32 parameters, keyed by checkpoint key
+    (``PARAM_KEYS``: ``conv1_1/w`` (3, 3, C, F) HWIO ... ``fc6/w`` (7, 7,
+    C, F6), ``fc7/w`` (F6, F7) and the biases); the counterpart of the JAX
+    VGG parameter pytree."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor]):
+        missing = [k for k in PARAM_KEYS if k not in params]
+        if missing:
+            raise KeyError(f"VGG parameter tree lacks {missing}")
+        fc6 = params["fc6/w"]
+        if fc6.dim() != 4 or tuple(fc6.shape[:2]) != (7, 7):
+            raise ValueError(f"fc6/w {tuple(fc6.shape)}: want (7, 7, C, F)")
+        super().__init__({k: nn.Parameter(torch.as_tensor(
+            params[k], dtype=torch.float32).detach().clone())
+            for k in PARAM_KEYS})
+
+    @classmethod
+    def from_numpy(cls, tree: Mapping, device) -> "VGGParams":
+        """From a nested or flat numpy tree (see
+        :func:`vgg_params_from_numpy`)."""
+        flat = flat_tree(tree)
+        return cls({k: torch.tensor(np.asarray(flat[k], np.float32))
+                    for k in PARAM_KEYS if k in flat}).to(torch.device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self["fc7/b"].device
+
+    def encoder(self, compute_dtype: torch.dtype) -> VGGEncoder:
+        """A ``VGGEncoder`` on the same device holding a copy of the
+        current weights, for extraction and serving through the conv
+        kernel (no host round trip)."""
+        return VGGEncoder({k: self[k].detach().clone() for k in PARAM_KEYS},
+                          compute_dtype)
+
+
+def init_vgg_params(generator: torch.Generator,
+                    width_multiplier: float = 1.0,
+                    fc_dim: int | None = None) -> VGGParams:
+    """Random VGG-16 parameters on the CPU (for tests and benchmarks
+    without the .mat file), with the JAX package's shapes and scales
+    (``lrcn_tpu/models/vgg.py:55-89``): conv weights He-normal,
+    ``N(0, 2 / (9 C_in))``, at ``max(8, int(width * width_multiplier))``
+    channels; fc6 and fc7 ``N(0, 0.01^2)`` at ``fc_dim`` (default 4096);
+    biases zero.  Drawn from ``generator`` in layer order (this package's
+    own stream, not ``jax.random``'s).  Move them with ``.to``."""
+    params: dict[str, torch.Tensor] = {}
+    normal = lambda *shape: torch.randn(shape, generator=generator)
+    c_in = 3
+    for entry in VGG16_LAYOUT:
+        if entry == "pool":
+            continue
+        name, c_out = entry
+        c_out = max(8, int(c_out * width_multiplier))
+        params[f"{name}/w"] = normal(3, 3, c_in, c_out) * float(
+            np.sqrt(2.0 / (9 * c_in)))
+        params[f"{name}/b"] = torch.zeros(c_out)
+        c_in = c_out
+    fc6_dim = fc_dim or FC6_DIM
+    fc7_dim = fc_dim or FC7_DIM
+    params["fc6/w"] = normal(7, 7, c_in, fc6_dim) * 0.01
+    params["fc6/b"] = torch.zeros(fc6_dim)
+    params["fc7/w"] = normal(fc6_dim, fc7_dim) * 0.01
+    params["fc7/b"] = torch.zeros(fc7_dim)
+    return VGGParams(params)
+
+
+def vgg_param_count(params: Mapping[str, torch.Tensor] | VGGParams) -> int:
+    return sum(int(params[k].numel()) for k in PARAM_KEYS)
+
+
+def vgg16_fc7_train(params: VGGParams, images: torch.Tensor,
+                    compute_dtype: torch.dtype = torch.bfloat16
+                    ) -> torch.Tensor:
+    """images (B, 224, 224, 3) preprocessed, NHWC -> fc7 (B, F7) float32,
+    NO relu7; differentiable in ``params`` and ``images``.
+
+    The XLA path's numerics (``vgg16_fc7_fn(..., use_pallas=False)``):
+    each conv runs in ``compute_dtype`` and outputs ``compute_dtype``,
+    then ``+ b`` in ``compute_dtype``, then ReLU (two roundings in bf16);
+    fc6 is the ``bhwc,hwcf->bf`` product with a float32 result, plus the
+    float32 bias, plus ReLU; fc7 a float32-result product plus its bias.
+    The activations run as NCHW views of NHWC memory (channels-last), the
+    layout cuDNN's fast kernels take.
+    """
+    cd = compute_dtype
+    x = images.permute(0, 3, 1, 2)          # NCHW view, channels-last
+    for entry in VGG16_LAYOUT:
+        if entry == "pool":
+            x = F.max_pool2d(x, 2, 2)        # 'VALID': an odd edge drops
+            continue
+        name = entry[0]
+        w = params[f"{name}/w"].permute(3, 2, 0, 1).to(
+            cd, memory_format=torch.channels_last)      # HWIO -> OIHW
+        y = F.conv2d(x.to(cd), w, padding=1)
+        x = torch.relu(y + params[f"{name}/b"].to(cd)[:, None, None])
+    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # NHWC flatten
+    w6 = params["fc6/w"]
+    x = torch.relu(matmul(x, w6.reshape(-1, w6.shape[-1]), cd)
+                   + params["fc6/b"].float())
+    # fc7 linear: the reference breaks before relu7 (lrcn.jl:717)
+    return matmul(x, params["fc7/w"], cd) + params["fc7/b"].float()
 
 
 def max_pool(x: torch.Tensor) -> torch.Tensor:

@@ -186,11 +186,19 @@ class CaptionService:
         return self._await_all([self._decode.submit(r) for r in rows])
 
     def caption_ids(self, image_ids: Sequence[int]) -> list[str]:
-        if self._rows_batcher is None:
+        """Caption stored images by id: rows of the device-resident table,
+        or, for an empty store (no table), the store's own lookup, which
+        raises ``KeyError`` for an unknown id as the JAX service does."""
+        if self.store is None:
             raise RuntimeError("service has no feature store")
-        rows = self.store.rows(image_ids)   # KeyError on unknown ids
-        return self._await_all(
-            [self._rows_batcher.submit(int(r)) for r in rows])
+        if self._rows_batcher is not None:
+            rows = self.store.rows(image_ids)   # KeyError on unknown ids
+            return self._await_all(
+                [self._rows_batcher.submit(int(r)) for r in rows])
+        feats = [self.store.get(int(i)) for i in image_ids]
+        if not self.store.normalized:
+            feats = [l1_normalize(r[None])[0] for r in feats]
+        return self._submit_decode(feats)
 
     def caption_images(self, images: Sequence[np.ndarray]) -> list[str]:
         """(224,224,3) uint8 arrays -> captions (encode stage + decode)."""
@@ -203,7 +211,8 @@ class CaptionService:
 
     def caption_image_bytes(self, blobs: Sequence[bytes]) -> list[str]:
         """Raw encoded image bytes (JPEG/PNG) -> captions, decoded
-        through :func:`lrcn_tpu_torch.data.images.load_blobs` (PIL)."""
+        through :func:`lrcn_tpu_torch.data.images.load_blobs` (the native
+        JPEG loader, PIL for the rest)."""
         from lrcn_tpu_torch.data.images import load_blobs
 
         images, ok = load_blobs(blobs)

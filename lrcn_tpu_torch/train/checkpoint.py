@@ -11,7 +11,9 @@
 ``opt_state.npz`` holds optax's leaves of ``chain([clip_by_global_norm,]
 adam)``, in optax's order: ``leaf_0`` the step count (int32 scalar),
 ``leaf_1..9`` Adam's first moments and ``leaf_10..18`` its second
-moments, each over the parameters in sorted key order (``OPT_KEYS``).
+moments, each over the parameters in sorted key order (``OPT_KEYS``).  A
+joint checkpoint holds the joint optimizer's 80 leaves (the CNN's Adam,
+then the decoder's; ``models/joint.py``), or 19 with the CNN frozen.
 
 ``save_checkpoint`` writes a complete snapshot to ``path.tmp``, then swaps
 it into place (``path`` -> ``path.old``, ``path.tmp`` -> ``path``), with
@@ -43,8 +45,6 @@ from lrcn_tpu_torch.core.vocab import Vocab
 from lrcn_tpu_torch.models.lrcn import (PARAM_KEYS, flat_tree,
                                         params_from_numpy)
 from lrcn_tpu_torch.models.vgg import vgg_params_from_numpy
-from lrcn_tpu_torch.train.joint import (identity_average_image,
-                                        is_joint_checkpoint)
 
 # optax's flattening order of a parameter dict: sorted keys
 OPT_KEYS = tuple(sorted(PARAM_KEYS))
@@ -107,12 +107,14 @@ def save_checkpoint(path: str, params: Mapping, vocab: Vocab,
     ``path.tmp``, then swap it into place, so that a kill at any instant
     leaves a loadable checkpoint (``load_checkpoint`` rolls it forward).
 
-    ``params``: an ``LRCNParams`` or any nested or flat mapping of tensors
-    or arrays.  ``opt_state``: the trainer's ``Optimizer`` or a list of
-    optax-ordered leaves.  ``position``: the mid-epoch resume marker of a
-    step-interval save (``make_position``); absent on epoch-complete saves,
-    which is what marks the epoch finished.  ``*.npy`` files already in
-    ``path`` (e.g. ``average_image.npy``) are kept.
+    ``params``: an ``LRCNParams``, a ``JointParams`` (saved under
+    ``cnn/`` and ``decoder/``) or any nested or flat mapping of tensors or
+    arrays.  ``opt_state``: the trainer's ``Optimizer``, the joint
+    trainer's optimizer state, or a list of optax-ordered leaves.
+    ``position``: the mid-epoch resume marker of a step-interval save
+    (``make_position``); absent on epoch-complete saves, which is what
+    marks the epoch finished.  ``*.npy`` files already in ``path`` (e.g.
+    ``average_image.npy``) are kept.
     """
     path = os.path.normpath(path)   # "ck/" + ".tmp" would land inside ck
     flat = {k: np.asarray(v, np.float32) for k, v in flat_tree(params).items()}
@@ -173,6 +175,10 @@ def load_checkpoint(path: str, device,
     'epoch', 'opt_leaves' (list or None) and 'position' (a mid-epoch
     resume marker or None).
     """
+    # the joint trainer's module imports this one: import it here
+    from lrcn_tpu_torch.train.joint import (identity_average_image,
+                                            is_joint_checkpoint)
+
     if recover_checkpoint(path) is None:
         raise FileNotFoundError(
             f"{path} is not a complete checkpoint (no config.json)")

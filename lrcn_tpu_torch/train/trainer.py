@@ -67,6 +67,74 @@ def fold_in(key: int, data: int) -> int:
     return z ^ (z >> 31)
 
 
+def step_generator(key: int, device: torch.device) -> torch.Generator:
+    """The dropout generator of the step with key ``key``, on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key & (_MASK64 >> 1))
+    return gen
+
+
+def make_adam(params: list[torch.Tensor], lr: float) -> torch.optim.Adam:
+    """``optax.adam(lr)``'s defaults (b1 0.9, b2 0.999, eps 1e-8), fused
+    on CUDA."""
+    fused = params[0].device.type == "cuda"
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            fused=fused or None)
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], gclip: float) -> None:
+    """``optax.clip_by_global_norm(gclip)`` in place: the global norm,
+    then optax's select (``norm < gclip`` keeps the gradients, else
+    ``g / norm * gclip``)."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    below = norm < gclip
+    for g in grads:
+        g.copy_(torch.where(below, g, g / norm * gclip))
+
+
+def adam_leaves(adam: torch.optim.Adam, params: list[torch.Tensor]
+                ) -> list[np.ndarray]:
+    """Adam's state over ``params`` as optax's leaves: [count, mu...,
+    nu...] (zeros before the first step)."""
+    count, mu, nu = 0, [], []
+    for p in params:
+        state = adam.state.get(p)
+        if state:
+            count = int(state["step"])
+            mu.append(state["exp_avg"].detach().cpu().numpy())
+            nu.append(state["exp_avg_sq"].detach().cpu().numpy())
+        else:
+            zeros = np.zeros(tuple(p.shape), np.float32)
+            mu.append(zeros)
+            nu.append(zeros)
+    return [np.asarray(count, np.int32)] + mu + nu
+
+
+def load_adam_leaves(adam: torch.optim.Adam, params: list[torch.Tensor],
+                     keys: Sequence[str], leaves: Sequence[np.ndarray],
+                     what: str) -> None:
+    """Restore Adam's state over ``params`` (named ``keys``) from optax's
+    leaves [count, mu..., nu...] of ``optax.adam`` over ``what``."""
+    n = len(params)
+    if len(leaves) != 1 + 2 * n:
+        raise ValueError(f"{len(leaves)} optimizer leaves; optax's Adam "
+                         f"over {what} has {1 + 2 * n}")
+    count = float(np.asarray(leaves[0]))
+    state = {}
+    for i, p in enumerate(params):
+        mu, nu = (np.asarray(leaves[1 + j * n + i], np.float32)
+                  for j in (0, 1))
+        if mu.shape != tuple(p.shape) or nu.shape != tuple(p.shape):
+            raise ValueError(f"optimizer leaf for {keys[i]} has shape "
+                             f"{mu.shape}, the parameter {tuple(p.shape)}")
+        state[i] = {"step": torch.tensor(count),
+                    "exp_avg": torch.from_numpy(mu),
+                    "exp_avg_sq": torch.from_numpy(nu)}
+    sd = adam.state_dict()
+    sd["state"] = state
+    adam.load_state_dict(sd)
+
+
 class Optimizer:
     """``optax.chain(clip_by_global_norm(gclip), adam(lr))`` over an
     ``LRCNParams``: ``zero_grad``, backward, then ``step``.
@@ -79,61 +147,25 @@ class Optimizer:
     def __init__(self, params: LRCNParams, cfg: LRCNConfig):
         self.params = [params[k] for k in OPT_KEYS]
         self.gclip = float(cfg.gclip or 0.0)
-        fused = params.device.type == "cuda"
-        self.adam = torch.optim.Adam(self.params, lr=cfg.lr,
-                                     betas=(0.9, 0.999), eps=1e-8,
-                                     fused=fused or None)
+        self.adam = make_adam(self.params, cfg.lr)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self) -> None:
         if self.gclip > 0:
-            grads = [p.grad for p in self.params]
-            # optax.global_norm, then clip_by_global_norm's select
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            below = norm < self.gclip
-            for g in grads:
-                g.copy_(torch.where(below, g, g / norm * self.gclip))
+            clip_by_global_norm_([p.grad for p in self.params], self.gclip)
         self.adam.step()
 
     def state_leaves(self) -> list[np.ndarray]:
         """Adam's state as optax's leaves: [count, mu..., nu...]."""
-        count, mu, nu = 0, [], []
-        for p in self.params:
-            state = self.adam.state.get(p)
-            if state:
-                count = int(state["step"])
-                mu.append(state["exp_avg"].detach().cpu().numpy())
-                nu.append(state["exp_avg_sq"].detach().cpu().numpy())
-            else:
-                zeros = np.zeros(tuple(p.shape), np.float32)
-                mu.append(zeros)
-                nu.append(zeros)
-        return [np.asarray(count, np.int32)] + mu + nu
+        return adam_leaves(self.adam, self.params)
 
     def load_leaves(self, leaves: Sequence[np.ndarray]) -> None:
         """Restore Adam's state from optax's leaves (a checkpoint's
         ``opt_leaves``, written by either package)."""
-        n = len(self.params)
-        if len(leaves) != 1 + 2 * n:
-            raise ValueError(f"{len(leaves)} optimizer leaves; optax's Adam "
-                             f"over the decoder has {1 + 2 * n}")
-        count = float(np.asarray(leaves[0]))
-        state = {}
-        for i, p in enumerate(self.params):
-            mu, nu = (np.asarray(leaves[1 + j * n + i], np.float32)
-                      for j in (0, 1))
-            if mu.shape != tuple(p.shape) or nu.shape != tuple(p.shape):
-                raise ValueError(f"optimizer leaf for {OPT_KEYS[i]} has "
-                                 f"shape {mu.shape}, the parameter "
-                                 f"{tuple(p.shape)}")
-            state[i] = {"step": torch.tensor(count),
-                        "exp_avg": torch.from_numpy(mu),
-                        "exp_avg_sq": torch.from_numpy(nu)}
-        sd = self.adam.state_dict()
-        sd["state"] = state
-        self.adam.load_state_dict(sd)
+        load_adam_leaves(self.adam, self.params, OPT_KEYS, leaves,
+                         "the decoder")
 
 
 class Trainer:
@@ -176,11 +208,6 @@ class Trainer:
 
     # --- one step ---
 
-    def _generator(self, key: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(key & (_MASK64 >> 1))
-        return gen
-
     def _step(self, params: LRCNParams, opt: Optimizer, tokens, lengths,
               feats, key: int) -> torch.Tensor:
         """One optimizer step; returns the batch's loss on the device."""
@@ -188,7 +215,8 @@ class Trainer:
         opt.zero_grad()
         loss = lrcn.loss_fn(
             params, tokens, lengths, feats, pdrop=pdrop,
-            generator=self._generator(key) if pdrop > 0 else None,
+            generator=(step_generator(key, self.device) if pdrop > 0
+                       else None),
             compute_dtype=self.compute_dtype)
         loss.backward()
         opt.step()

@@ -37,6 +37,11 @@ SLICE_MODULES = [
     "lrcn_tpu_torch.decode.sample",
     "lrcn_tpu_torch.train.metrics",
     "lrcn_tpu_torch.train.trainer",
+    "lrcn_tpu_torch.models.joint",
+    "lrcn_tpu_torch.native",
+    "lrcn_tpu_torch.evaluation",
+    "lrcn_tpu_torch.evaluation.bleu",
+    "lrcn_tpu_torch.evaluation.references",
     "lrcn_tpu_torch.core",
     "lrcn_tpu_torch.data",
     "lrcn_tpu_torch.decode",
@@ -95,3 +100,18 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("first", ["lrcn_tpu_torch.models.joint",
+                                   "lrcn_tpu_torch.train.joint",
+                                   "lrcn_tpu_torch.train.checkpoint"])
+def test_joint_modules_import_in_any_order(first):
+    """The joint step imports the trainer's package, whose checkpoint
+    reader loads the joint trainer lazily: no import cycle, whichever
+    module comes first; ``lrcn_tpu_torch.train.JointTrainer`` resolves."""
+    proc = _run(f"import {first}\n"
+                "import lrcn_tpu_torch.train as t\n"
+                "from lrcn_tpu_torch.models.joint import JointTrainStep\n"
+                "assert t.JointTrainer.__module__ == "
+                "'lrcn_tpu_torch.train.joint'\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -301,3 +301,66 @@ def test_service_without_encoder_refuses_images(tiny, tiny_joint):
     with pytest.raises(ValueError, match="features"):
         CaptionService(cfg, ck["decoder"], ck["vocab"], device=CPU,
                        vgg=joint["vgg"])    # fc7 width 16, decoder's 8
+
+
+def test_caption_ids_on_an_empty_store_match_jax_service(tiny):
+    """A service over a store with no rows: ``caption_ids([])`` gives
+    ``[]`` and ``caption_ids([5])`` the store's ``KeyError``, in both
+    packages (the port raised ``RuntimeError`` for both)."""
+    cfg, vocab, params, _, root = tiny
+    ck = load_checkpoint(str(root / "ckpt"), CPU)
+    ported = CaptionService(cfg, ck["decoder"], ck["vocab"], device=CPU,
+                            store=TorchStore(dim=10), beam_width=2,
+                            max_words=4)
+    ref = JaxCaptionService(cfg, params, vocab, store=FeatureStore(dim=10),
+                            compute_dtype=jnp.float32, beam_width=2,
+                            max_words=4)
+    try:
+        assert ported.caption_ids([]) == ref.caption_ids([]) == []
+        errors = []
+        for svc in (ported, ref):
+            with pytest.raises(KeyError) as err:
+                svc.caption_ids([5])
+            errors.append(str(err.value))
+        assert errors[0] == errors[1] == "'missing features for image 5'"
+    finally:
+        ported.close()
+        ref.close()
+
+
+def test_caption_jpeg_bytes_match_jax_service(tiny_joint):
+    """JPEG bodies decode through the native loader in both packages, so
+    the services see the same pixels and give the same captions."""
+    from PIL import Image
+
+    ported, ref = _image_services(tiny_joint, beam_width=2, max_words=8,
+                                  decode_batch=4, encode_batch=2)
+    try:
+        blobs = []
+        for i, img in enumerate(_uint8_images(23, 3)):
+            buf = io.BytesIO()
+            Image.fromarray(img[: 190 + 17 * i]).save(buf, format="JPEG",
+                                                      quality=90)
+            blobs.append(buf.getvalue())
+        assert ported.caption_image_bytes(blobs) == \
+            ref.caption_image_bytes(blobs)
+    finally:
+        ported.close()
+        ref.close()
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_generate_captions_normalize_matches_jax_writer(tiny, normalize):
+    """``normalize=`` overrides the store's flag (the unnormalized store
+    read raw, or normalized on the fly) as in the JAX writer."""
+    cfg, vocab, params, store, root = tiny
+    ck = load_checkpoint(str(root / "ckpt"), CPU)
+    ids = store.ids()[:9]
+    kw = dict(beam_width=2, max_words=7, batch_size=4, scan_depth=2,
+              resident_store=False, normalize=normalize)
+    ref = jax_generate(params, vocab, store, ids, compute_dtype=jnp.float32,
+                       **kw)
+    got = generate_captions(ck["decoder"], ck["vocab"],
+                            TorchStore.load(str(root / "store")), ids,
+                            device=CPU, **kw)
+    assert got == ref
