@@ -63,6 +63,7 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
                       store: FeatureStore, image_ids: Sequence[int], *,
                       device, beam_width: int = 3, max_words: int = 30,
                       batch_size: int = 64, scan_depth: int = 4,
+                      max_inflight: int = MAX_INFLIGHT,
                       resident_store: bool | None = None,
                       normalize: bool | None = None,
                       sample_n: int = 0, temperature: float = 2.0,
@@ -80,9 +81,10 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     unless the store says they already are (the reference's ``featsn``
     files are pre-normalized; its live path normalizes at lrcn.jl:597).
 
-    ``scan_depth`` batches decode as one search; up to ``MAX_INFLIGHT``
+    ``scan_depth`` batches decode as one search; up to ``max_inflight``
     searches are queued on the device before the oldest one's tokens are
-    fetched, so the host enqueues the next group while the device works.
+    fetched, so the host enqueues the next group while the device works
+    (more in flight holds more device memory).
 
     ``resident_store``: upload the whole feature table to ``device`` once
     and gather rows there by index; by default when the run decodes at
@@ -100,6 +102,7 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     if resident_store is None:
         resident_store = 0 < len(store) <= len(image_ids)
     feat_dtype = decoder.compute_dtype   # the search casts to it first
+    max_inflight = max(1, max_inflight)
 
     table = None
     if resident_store and len(store):
@@ -140,7 +143,7 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
                 tokens, _ = search(decoder, feats, beam_width=beam_width,
                                    max_words=max_words)
         pending.append((tokens, n_real))
-        if len(pending) > MAX_INFLIGHT:
+        if len(pending) > max_inflight:
             drain_one()
     while pending:
         drain_one()

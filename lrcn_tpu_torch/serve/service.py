@@ -15,10 +15,16 @@ whole number of ``decode_batch``-row batches, up to ``MAX_DECODE_GROUPS``
 of them in one search (burst absorption), and enqueues the search on the
 device without waiting; the collector thread fetches the tokens and
 detokenizes them.  Requests by id ship int64 row indices into a feature
-table that lives on the device, uploaded once at construction.  Requests
-by image go through the encode stage, then the fc7-row batcher.
+table that lives on the device, uploaded once at construction (a store
+empty at construction gets no table: requests by id then go through the
+store's own lookup and the fc7-row batcher).  Requests by image go
+through the encode stage, then the fc7-row batcher.
 
-Not ported yet: the device mesh and the HTTP front ends.
+As in the JAX service, ``max_queue`` bounds each batcher's queue (a
+request beyond it raises ``BatcherOverloaded``, HTTP 503 in
+``serve/http.py``) and ``max_burst_groups`` sets ``MAX_DECODE_GROUPS``.
+
+Not ported yet: the device mesh and the C++ front end.
 """
 
 from __future__ import annotations
@@ -61,7 +67,9 @@ class CaptionService:
                  beam_width: int = 3, max_words: int = 30,
                  decode_batch: int = 64, encode_batch: int = 8,
                  max_wait_ms: float = 5.0,
-                 request_timeout_s: float = 60.0):
+                 request_timeout_s: float = 60.0,
+                 max_queue: int | None = None,
+                 max_burst_groups: int | None = None):
         self.device = as_device(device)
         for name, model in (("decoder", decoder), ("vgg", vgg)):
             if model is not None and model.device != self.device:
@@ -75,10 +83,17 @@ class CaptionService:
         self.max_words = max_words
         self.decode_batch = decode_batch
         self.request_timeout_s = request_timeout_s
+        if max_burst_groups is not None:
+            # deeper bursts drain a backlog faster, at the cost of each
+            # search's latency
+            if max_burst_groups < 1:
+                raise ValueError("max_burst_groups must be >= 1")
+            self.MAX_DECODE_GROUPS = int(max_burst_groups)
         max_batch = decode_batch * self.MAX_DECODE_GROUPS
         self._decode = DynamicBatcher(
             self._decode_feats_grouped, finalize=self._decode_finalize,
-            max_batch=max_batch, max_wait_ms=max_wait_ms, name="decode")
+            max_batch=max_batch, max_wait_ms=max_wait_ms, name="decode",
+            max_queue=max_queue)
         # Device-resident feature table: requests by id ship row indices
         # instead of fc7 rows.  In the compute dtype: the search casts its
         # features to it before first use, so this is bit-identical and
@@ -93,7 +108,7 @@ class CaptionService:
             self._rows_batcher = DynamicBatcher(
                 self._decode_rows_grouped, finalize=self._decode_finalize,
                 max_batch=max_batch, max_wait_ms=max_wait_ms,
-                name="decode_ids")
+                name="decode_ids", max_queue=max_queue)
         self.vgg = vgg
         self._encode = self._average_image = None
         if vgg is not None:
@@ -106,7 +121,7 @@ class CaptionService:
             self._encode = DynamicBatcher(
                 self._encode_fn, finalize=self._encode_finalize,
                 max_batch=encode_batch, max_wait_ms=max_wait_ms,
-                name="encode")
+                name="encode", max_queue=max_queue)
 
     # --- stage fns (dispatcher threads) ---
 
@@ -240,19 +255,22 @@ class CaptionService:
 
     def warmup(self, timeout_s: float = 600.0) -> None:
         """Run every serving path once before taking traffic: this builds
-        the kernels and warms cuBLAS and the caching allocator at the
-        largest burst shape and at the encoder's batch.  ``timeout_s``
-        covers the first build."""
+        the kernels and warms cuBLAS and the caching allocator at every
+        burst size, 1..``MAX_DECODE_GROUPS`` batches, through the feature
+        path and, with a device table, the id path, and at the encoder's
+        batch.  ``timeout_s`` covers the first build."""
         dim = self.cfg.cnn_feature_dim
-        full = self.decode_batch * self.MAX_DECODE_GROUPS
         self._await_all([self._decode.submit(np.zeros(dim, np.float32))],
                         timeout_s=timeout_s)
-        self._decode_finalize(self._decode_feats_grouped(
-            [np.zeros(dim, np.float32)] * full))
         if self._rows_batcher is not None:
             self._await_all([self._rows_batcher.submit(0)],
                             timeout_s=timeout_s)
-            self._decode_finalize(self._decode_rows_grouped([0] * full))
+        for g in range(1, self.MAX_DECODE_GROUPS + 1):
+            n = self.decode_batch * (g - 1) + 1
+            self._decode_finalize(self._decode_feats_grouped(
+                [np.ones(dim, np.float32) / dim] * n))
+            if self._rows_batcher is not None:
+                self._decode_finalize(self._decode_rows_grouped([0] * n))
         if self._encode is not None:
             feat = self._await_all(
                 [self._encode.submit(np.zeros((CROP, CROP, 3), np.uint8))],

@@ -161,8 +161,8 @@ def recover_checkpoint(path: str) -> str | None:
 
 
 def load_checkpoint(path: str, device,
-                    compute_dtype: torch.dtype | None = None
-                    ) -> dict[str, Any]:
+                    compute_dtype: torch.dtype | None = None,
+                    opt_state: bool = True) -> dict[str, Any]:
     """Load a checkpoint directory onto ``device``, first rolling a crashed
     save forward.
 
@@ -172,8 +172,9 @@ def load_checkpoint(path: str, device,
     (the joint checkpoint's ``average_image.npy``, zeros if it has none;
     None for a decoder-only checkpoint), 'params' (the flat numpy tree;
     ``LRCNParams.from_numpy`` makes it trainable), 'vocab', 'cfg', 'step',
-    'epoch', 'opt_leaves' (list or None) and 'position' (a mid-epoch
-    resume marker or None).
+    'epoch', 'opt_leaves' (list or None; not read with ``opt_state=False``,
+    which inference passes: a joint checkpoint's optimizer leaves are twice
+    its parameters) and 'position' (a mid-epoch resume marker or None).
     """
     # the joint trainer's module imports this one: import it here
     from lrcn_tpu_torch.train.joint import (identity_average_image,
@@ -193,7 +194,7 @@ def load_checkpoint(path: str, device,
         compute_dtype = compute_dtype_of(cfg)
     opt_leaves = None
     opt_path = os.path.join(path, "opt_state.npz")
-    if os.path.exists(opt_path):
+    if opt_state and os.path.exists(opt_path):
         with np.load(opt_path) as z:
             opt_leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
     tree = _unflatten(params)

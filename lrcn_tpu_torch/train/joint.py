@@ -247,8 +247,8 @@ class JointTrainer:
         end_epoch = epochs if resumed else start_epoch + epochs - 1
         if start_epoch > end_epoch:
             print(f"train --joint: checkpoint already covers "
-                  f"{completed_epochs} of the {epochs}-epoch budget; "
-                  f"nothing to do (raise epochs to continue)")
+                  f"{completed_epochs} of the {epochs}-epoch budget — "
+                  f"nothing to do (raise --epochs to continue)")
             return params, opt_state
         for epoch in range(start_epoch, end_epoch + 1):
             epoch_state = copy.deepcopy(shuffle_rng.bit_generator.state)

@@ -396,8 +396,8 @@ class Trainer:
         end_epoch = epochs if resumed else start_epoch + epochs - 1
         if start_epoch > end_epoch:
             print(f"train: checkpoint already covers {completed_epochs} "
-                  f"of the {epochs}-epoch budget; nothing to do (raise "
-                  f"epochs to continue training)")
+                  f"of the {epochs}-epoch budget — nothing to do "
+                  f"(raise --epochs to continue training)")
             return params, opt
         for epoch in range(start_epoch, end_epoch + 1):
             epoch_state = copy.deepcopy(shuffle_rng.bit_generator.state)

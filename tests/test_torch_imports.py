@@ -1,5 +1,7 @@
-"""The port loads nothing of JAX or of ``lrcn_tpu``, and nothing of PIL
-when it is imported: the machine with the card has neither JAX nor PIL.
+"""The port loads nothing of JAX or of ``lrcn_tpu``, and nothing of PIL,
+h5py or scipy when it is imported: the machine with the card has neither
+JAX nor PIL nor h5py, and the modules that read .mat or .jld files import
+scipy or h5py inside the functions that need them.
 Checked in a fresh interpreter, since this test process imports JAX
 (tests/conftest.py).  Importing needs no ``nvcc`` and no GPU either."""
 
@@ -48,6 +50,11 @@ SLICE_MODULES = [
     "lrcn_tpu_torch.models",
     "lrcn_tpu_torch.ops",
     "lrcn_tpu_torch.train",
+    "lrcn_tpu_torch.cli",
+    "lrcn_tpu_torch.data.karpathy",
+    "lrcn_tpu_torch.data.jld",
+    "lrcn_tpu_torch.data.download",
+    "lrcn_tpu_torch.serve.http",
 ]
 
 
@@ -57,15 +64,21 @@ def _run(code: str) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=120)
 
 
-def _imports_nothing_forbidden(modules: list[str]) -> str:
-    """Code that imports ``modules`` and fails if JAX, ``lrcn_tpu`` or PIL
-    was loaded."""
+PORT_FORBIDDEN = ("jax", "jaxlib", "lrcn_tpu", "PIL", "h5py", "scipy")
+# chip_smoke.py writes a .mat file with scipy (the card's machine has it)
+SCRIPT_FORBIDDEN = ("jax", "jaxlib", "lrcn_tpu", "PIL", "h5py")
+
+
+def _imports_nothing_forbidden(modules: list[str],
+                               forbidden=PORT_FORBIDDEN) -> str:
+    """Code that imports ``modules`` and fails if a package of
+    ``forbidden`` (by default JAX, ``lrcn_tpu``, PIL, h5py and scipy) was
+    loaded."""
     return (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'lrcn_tpu',\n"
-        "             'PIL') or m.startswith(('jax.', 'jaxlib',\n"
-        "                                     'lrcn_tpu.', 'PIL.')))\n"
+        f"bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {forbidden!r})\n"
         "print(bad)\n"
         "assert not bad, bad\n")
 
@@ -87,7 +100,8 @@ def test_chip_smoke_imports_no_jax_and_no_pil():
                         if isinstance(node, ast.ImportFrom)
                         and node.level == 0 and node.module != "__future__"})
     assert "lrcn_tpu_torch.models.vgg" in modules
-    proc = _run(_imports_nothing_forbidden(modules + ["chip_smoke"]))
+    proc = _run(_imports_nothing_forbidden(modules + ["chip_smoke"],
+                                           SCRIPT_FORBIDDEN))
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
