@@ -101,7 +101,22 @@ exits nonzero:
    libjpeg on the card's machine; printed); ``serve`` through the HTTP
    front end (sequential id requests: p50 and p99 wall; ids, features and
    images against the service's own captions; /healthz, /stats, 404, 400,
-   413).  Each command's launches go into ``launches_by_path``.
+   413).  Each command's launches go into ``launches_by_path``;
+14. the C++ front end under load: phase 8's joint checkpoint and a
+   2,048-row store (ids 0..2047) served by ``cli.make_caption_service``
+   and ``serve.native_frontend`` at the CLI's serve defaults (decode batch
+   64, beam 3, bf16), driven by the port's load generator (built with g++
+   in phase 2's time): behind a device-side spin, an issue and a fetch
+   must not wait for the stream; closed loops at 64 and 512 connections
+   (requests/s, captions/s, p50/p90/p99, the client's CPU share, /stats
+   mean batch, ``pending_hwm`` within ``max_inflight``, the pump's issue
+   and issue-to-response medians), an open loop at half the
+   512-connection rate, the feature leg, a spin under the 512-connection
+   loop (the pump must fill ``max_inflight``), the device's idle share in a
+   traced window (``utils.profiling``), ids, raw features and images by
+   HTTP equal to the service's own calls, launches by route from the
+   searches and encoder batches run, ``stop()``, and every served row
+   through the kernels against the plain path at f32.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
@@ -243,6 +258,22 @@ CLI_JOINT_IMAGES, CLI_JOINT_BATCH = 64, 32
 CLI_EXTRACT_IMAGES, CLI_EXTRACT_BATCH = 256, 64
 CLI_SERVE_REQUESTS = 100
 CLI_DEVICE_FLAGS: list = []     # none: the CLI's default device, the card
+
+# the C++ front end under load (phase 14): the CLI's serve defaults (decode
+# batch 64, 4 groups a burst: 192-768 LSTM rows), phase 8's joint
+# checkpoint, a store of fc7 rows under ids 0..N-1 (loadgen asks for ids
+# in [0, N)); closed loops at 64 and 512 connections, an open loop at half
+# the 512-connection rate, the feature leg (4096 floats a row) and a
+# traced window of the 512-connection loop
+NATIVE_ROWS = 2048
+NATIVE_CONNS, NATIVE_THREADS = (64, 512), 512 + 64
+NATIVE_WARM_S, NATIVE_LOAD_S = 1.0, 3.0
+NATIVE_FEAT_CONNS, NATIVE_FEAT_S = 16, 2.0
+NATIVE_TRACE_S = 2.0
+NATIVE_IDS, NATIVE_FEATURES, NATIVE_IMAGES = 64, 16, 8
+#  the issue and fetch paths must not wait for the device: held against a
+#  device-side spin of this long on the stream every thread shares
+NATIVE_STALL_MS = 300.0
 
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
@@ -408,8 +439,15 @@ def phase_card() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    from lrcn_tpu_torch import native
     from lrcn_tpu_torch.ops.kernels import build
 
+    # the C++ front end and the load generator (phase 14) build with g++
+    # beside the kernels; phase 14 waits for them
+    host_builds = ThreadPoolExecutor(2)
+    host_builds.submit(native.httpserve_library)
+    host_builds.submit(native.loadgen_binary)
+    host_builds.shutdown(wait=False)
     t0 = time.perf_counter()
     path = build.build()
     build.load()
@@ -2563,6 +2601,473 @@ def phase_cli(smi: str) -> dict[str, dict]:
     return run.counts
 
 
+def loadgen_cmd(exe: str, port: int, conns: int, seconds: float,
+                rate: float = 0.0, feat_dim: int = 0) -> list[str]:
+    """The load generator's command line: one id in [0, NATIVE_ROWS) a
+    request (or, with ``feat_dim``, one raw fc7 row), closed loop, or open
+    loop at ``rate`` requests/s."""
+    return [exe, "127.0.0.1", str(port), str(conns), str(seconds),
+            str(NATIVE_ROWS), "1", str(rate), str(feat_dim), ""]
+
+
+def loadgen_result(code: int, stdout: str, stderr: str) -> dict:
+    """The load generator's JSON line, with the client's CPU share of the
+    machine's cores (it must stay well under 1 for the server to set the
+    pace)."""
+    check(code == 0, f"loadgen exited {code}: {stderr[-300:]}")
+    r = json.loads(stdout.strip().splitlines()[-1])
+    r["client_cpu"] = ((r["cpu_user_s"] + r["cpu_sys_s"])
+                       / (r["wall_s"] * (os.cpu_count() or 1)))
+    return r
+
+
+def run_loadgen(exe: str, port: int, conns: int, seconds: float,
+                rate: float = 0.0, feat_dim: int = 0) -> dict:
+    out = subprocess.run(loadgen_cmd(exe, port, conns, seconds, rate,
+                                     feat_dim),
+                         capture_output=True, text=True, timeout=seconds + 150)
+    return loadgen_result(out.returncode, out.stdout, out.stderr)
+
+
+@contextmanager
+def counted_searches(searches: list, encodes: list):
+    """Append each beam search's LSTM rows to ``searches`` and each
+    encoder batch's size to ``encodes``, whichever thread runs them."""
+    from lrcn_tpu_torch.decode import beam
+    from lrcn_tpu_torch.serve import service
+
+    real_search, real_fc7 = beam.beam_search, service.vgg16_fc7
+
+    def search(decoder, feats, **kwargs):
+        searches.append(feats.shape[0] * kwargs["beam_width"])
+        return real_search(decoder, feats, **kwargs)
+
+    def fc7(vgg, pixels, *args):
+        encodes.append(pixels.shape[0])
+        return real_fc7(vgg, pixels, *args)
+
+    beam.beam_search, service.vgg16_fc7 = search, fc7
+    try:
+        yield
+    finally:
+        beam.beam_search, service.vgg16_fc7 = real_search, real_fc7
+
+
+def stall_cycles(ms: float) -> int:
+    """Clock cycles of ``torch.cuda._sleep`` that keep the card busy for
+    about ``ms``, from one timed spin."""
+    cycles = 10_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return int(cycles * ms / start.elapsed_time(end))
+
+
+def check_no_device_wait(service, cycles: int) -> str:
+    """The traps of a shared stream, held on the card: with the stream busy
+    for NATIVE_STALL_MS (a device-side spin), an issue returns long before
+    the spin ends, its search still pending (the upload does not wait for
+    the searches in flight); and the fetch of a search issued before a spin
+    and a second search returns long before the spin ends, the second
+    search still pending (it waits for its own copy, not the stream)."""
+    rows = list(range(service.decode_batch * service.MAX_DECODE_GROUPS))
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    raw = service._decode_rows_grouped(rows)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    issue_pending = not raw[2].query()
+    service._wait(raw)
+    first = service._decode_rows_grouped(rows)
+    torch.cuda._sleep(cycles)
+    second = service._decode_rows_grouped(rows)
+    t0 = time.perf_counter()
+    service._wait(first)
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    second_pending = not second[2].query()
+    service._wait(second)
+    check(issue_ms < NATIVE_STALL_MS / 2 and issue_pending
+          and fetch_ms < NATIVE_STALL_MS / 2 and second_pending,
+          f"a {NATIVE_STALL_MS} ms spin on the stream: the issue took "
+          f"{issue_ms:.1f} ms (pending after: {issue_pending}), the fetch "
+          f"of the search before the spin {fetch_ms:.1f} ms (the one after "
+          f"still pending: {second_pending})")
+    return (f"behind a {NATIVE_STALL_MS:.0f} ms device-side spin an issue of "
+            f"{len(rows)} ids took {issue_ms:.1f} ms and returned with its "
+            f"search pending; the fetch of a search issued before another "
+            f"spin took {fetch_ms:.2f} ms, the search after it pending")
+
+
+def post(port: int, body, method: str = "POST", path: str = "/v1/caption"):
+    """(status, JSON reply) of one request on a connection of its own."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        return http_request(conn, method, path, body)
+    finally:
+        conn.close()
+
+
+def phase_native(smi: str, tree: dict) -> dict[str, int]:
+    """The C++ HTTP front end (``serve/native_http.py``) under concurrent
+    load on the card: phase 8's joint checkpoint (the random decoder
+    ``tree`` and a full-width random VGG-16) and a store of NATIVE_ROWS
+    rows, served through ``cli.make_caption_service`` and
+    ``native_frontend``, driven by the port's load generator.  Returns the
+    kernels' launches over the loads and the HTTP checks."""
+    import base64
+
+    from lrcn_tpu_torch import cli
+    from lrcn_tpu_torch.data.feature_store import FeatureStore
+    from lrcn_tpu_torch.decode.beam import beam_search
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+    from lrcn_tpu_torch.models.lrcn import params_from_numpy
+    from lrcn_tpu_torch.models.vgg import CONV_NAMES
+    from lrcn_tpu_torch.native import httpserve_library, loadgen_binary
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.serve import native_frontend
+    from lrcn_tpu_torch.utils.profiling import device_time_ms, trace
+
+    work = os.path.join(WORK, "native")
+    joint = os.path.join(WORK, "joint")            # phase 8's checkpoint
+    rng = np.random.default_rng(SEED + 14)
+    marks = [("", time.perf_counter())]
+
+    def mark(label: str) -> None:
+        marks.append((label, time.perf_counter()))
+    t0 = time.perf_counter()     # phase 2 started both builds
+    check(httpserve_library() is not None, "httpserve did not build")
+    exe = loadgen_binary()
+    check(exe is not None, "loadgen did not build")
+    build_s = time.perf_counter() - t0
+    raw = np.abs(rng.standard_normal((NATIVE_ROWS, CNN_DIM), np.float32))
+    store = FeatureStore.from_dict(dict(enumerate(raw)), normalized=False)
+    store.save(os.path.join(work, "store"))
+    args = cli.build_parser().parse_args([
+        *CLI_DEVICE_FLAGS, "serve", "--loadfile", joint, "--features",
+        os.path.join(work, "store"), "--generate", str(MAX_WORDS), "--host",
+        "127.0.0.1", "--port", "0"])
+    service = cli.make_caption_service(args)
+    service.warmup()
+    frontend = native_frontend(
+        service, host=args.host, port=args.port, n_threads=NATIVE_THREADS,
+        max_queue=args.max_queue or 4096, feat_wait_ms=args.feat_wait_ms)
+    port = frontend.port
+    cycles = stall_cycles(NATIVE_STALL_MS)
+    waits = check_no_device_wait(service, cycles)
+    print(f"[14 native] waited {build_s:.1f} s for httpserve and loadgen; "
+          f"serving {joint} and {NATIVE_ROWS} stored rows on port {port}, "
+          f"decode batch {args.decode_batch} x {service.MAX_DECODE_GROUPS} "
+          f"groups, beam {args.beam_width}, --generate {MAX_WORDS}, bf16, "
+          f"{NATIVE_THREADS} connection threads; {waits}")
+    tdir = os.path.join(work, "trace")
+    with trace(os.path.join(work, "trace_warmup"), device=service.device):
+        torch.ones(1, device=service.device).sum()   # profiler set-up
+    mark("set-up")
+
+    # the pump's issue calls and each batch's issue-to-response time
+    issue_s, answer_s, started = [], [], {}
+    real_issue, real_respond = (service._decode_rows_grouped,
+                                frontend._respond_raw)
+
+    def timed_issue(rows):
+        t = time.perf_counter()
+        raw_result = real_issue(rows)
+        issue_s.append(time.perf_counter() - t)
+        started[id(raw_result)] = t
+        return raw_result
+
+    def timed_respond(preqs, pslots, raw_result):
+        real_respond(preqs, pslots, raw_result)
+        t = started.pop(id(raw_result), None)
+        if t is not None:
+            answer_s.append(time.perf_counter() - t)
+
+    service._decode_rows_grouped = timed_issue
+    frontend._respond_raw = timed_respond
+    stats = lambda: post(port, None, "GET", "/stats")[1]
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    searches, encodes, loads = [], [], {}
+    pixels = {i: rng.integers(0, 256, (224, 224, 3), np.uint8)
+              for i in range(NATIVE_IMAGES)}
+    reset_counts(*fns)
+    try:
+        with counted_searches(searches, encodes):
+            # closed loops: a warm-up, then the measured run
+            for conns in NATIVE_CONNS:
+                run_loadgen(exe, port, conns, NATIVE_WARM_S)
+                before = stats()
+                issue_s.clear()
+                answer_s.clear()
+                frontend.pending_hwm = 0
+                r = run_loadgen(exe, port, conns, NATIVE_LOAD_S)
+                after = stats()
+                r["mean_batch"] = ((after["items"] - before["items"])
+                                   / max(1, after["batches"]
+                                         - before["batches"]))
+                r["pending_hwm"] = frontend.pending_hwm
+                r["issue_ms"] = statistics.median(issue_s) * 1e3
+                r["answer_ms"] = statistics.median(answer_s) * 1e3
+                loads[conns] = r
+                print(f"[14 native] closed loop, {conns} connections, "
+                      f"{NATIVE_LOAD_S:.0f} s, one id a request: "
+                      f"{r['throughput_rps']} requests/s, "
+                      f"{r['captions_per_s']} captions/s, p50 {r['p50_ms']} "
+                      f"ms, p90 {r['p90_ms']} ms, p99 {r['p99_ms']} ms, "
+                      f"errors {r['errors']}, client CPU share "
+                      f"{r['client_cpu']:.4f}; /stats mean_batch_size "
+                      f"{r['mean_batch']:.2f}, pending_hwm "
+                      f"{r['pending_hwm']}; the pump's issue median "
+                      f"{r['issue_ms']:.3f} ms of {len(issue_s)}, issue to "
+                      f"response median {r['answer_ms']:.3f} ms; on {smi}")
+                check(r["errors"] == 0 and r["requests"] > 0,
+                      f"closed loop at {conns}: {r}")
+            closed = loads[NATIVE_CONNS[-1]]
+            rate = closed["throughput_rps"] / 2
+            r = run_loadgen(exe, port, NATIVE_CONNS[-1], NATIVE_LOAD_S,
+                            rate=rate)
+            print(f"[14 native] open loop, {NATIVE_CONNS[-1]} connections at "
+                  f"{rate:.1f} requests/s (half the closed loop's), "
+                  f"{NATIVE_LOAD_S:.0f} s: p50 {r['p50_ms']} ms, p90 "
+                  f"{r['p90_ms']} ms, p99 {r['p99_ms']} ms from the "
+                  f"scheduled times, completion {r['completion']}, errors "
+                  f"{r['errors']}, client CPU share {r['client_cpu']:.4f}; "
+                  f"on {smi}")
+            check(r["errors"] == 0 and r["completion"] >= 0.99,
+                  f"open loop: {r}")
+            loads["open"] = r
+            r = run_loadgen(exe, port, NATIVE_FEAT_CONNS, NATIVE_FEAT_S,
+                            feat_dim=CNN_DIM)
+            print(f"[14 native] feature leg, {NATIVE_FEAT_CONNS} connections,"
+                  f" {NATIVE_FEAT_S:.0f} s, one raw {CNN_DIM}-float row a "
+                  f"request: {r['captions_per_s']} captions/s, p50 "
+                  f"{r['p50_ms']} ms, p99 {r['p99_ms']} ms, errors "
+                  f"{r['errors']}; on {smi}")
+            check(r["errors"] == 0 and r["requests"] > 0,
+                  f"feature leg: {r}")
+
+            # the pump runs ahead of a stalled device, up to its budget:
+            # a spin on the shared stream under the 512-connection loop
+            frontend.pending_hwm = 0
+            proc = subprocess.Popen(
+                loadgen_cmd(exe, port, NATIVE_CONNS[-1], 1.5),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                time.sleep(0.5)
+                torch.cuda._sleep(cycles)
+                out, err = proc.communicate(timeout=150)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            r = loadgen_result(proc.returncode, out, err)
+            print(f"[14 native] a {NATIVE_STALL_MS:.0f} ms device-side spin "
+                  f"under the {NATIVE_CONNS[-1]}-connection closed loop: "
+                  f"pending_hwm {frontend.pending_hwm} of max_inflight "
+                  f"{frontend._max_inflight}, p99 {r['p99_ms']} ms, errors "
+                  f"{r['errors']}")
+            check(r["errors"] == 0
+                  and frontend.pending_hwm == frontend._max_inflight,
+                  f"behind a spin the pump held {frontend.pending_hwm} "
+                  f"searches in flight, want max_inflight "
+                  f"{frontend._max_inflight}: {r}")
+
+            mark("loads")
+            # the device's idle share under the 512-connection closed loop
+            proc = subprocess.Popen(
+                loadgen_cmd(exe, port, NATIVE_CONNS[-1], NATIVE_TRACE_S + 1),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                time.sleep(0.5)
+                with trace(tdir, device=service.device):
+                    items = stats()["items"]
+                    t0 = time.perf_counter()
+                    time.sleep(NATIVE_TRACE_S)
+                    wall = time.perf_counter() - t0
+                    items = stats()["items"] - items
+                out, err = proc.communicate(timeout=NATIVE_TRACE_S + 150)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            r = loadgen_result(proc.returncode, out, err)
+            check(r["errors"] == 0, f"traced closed loop: {r}")
+            busy = device_time_ms(tdir)
+            print(f"[14 native] traced window of the {NATIVE_CONNS[-1]}-"
+                  f"connection closed loop (utils.profiling.trace, "
+                  f"device_time_ms): wall {wall * 1e3:.1f} ms, device busy "
+                  f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.4f}, "
+                  f"{items / wall:.1f} captions/s in the window (the "
+                  f"profiler slows the host); on {smi}")
+            check(0 < busy <= wall * 1e3 * 1.05,
+                  f"device busy {busy} ms in a {wall * 1e3} ms window")
+            check(closed["pending_hwm"] <= frontend._max_inflight,
+                  f"{closed['pending_hwm']} searches in flight at "
+                  f"{NATIVE_CONNS[-1]} connections, over max_inflight")
+
+            mark("trace")
+            # right answers, each against the service's own call
+            ids = [int(i) for i in rng.choice(NATIVE_ROWS, NATIVE_IDS,
+                                              replace=False)]
+            status, reply = post(port, {"ids": ids})
+            check(status == 200 and reply["captions"]
+                  == service.caption_ids(ids), f"ids body: {status}")
+            rows = raw[:NATIVE_FEATURES] * rng.uniform(
+                0.5, 4.0, (NATIVE_FEATURES, 1)).astype(np.float32)
+            status, reply = post(port, {"features": rows.tolist()})
+            check(status == 200 and reply["captions"]
+                  == service.caption_features(list(rows)),
+                  f"raw features body: {status}")
+            blobs = [base64.b64encode(str(i).encode()).decode()
+                     for i in pixels]
+            with synthetic_pixels(pixels), ThreadPoolExecutor(
+                    NATIVE_IMAGES) as pool:
+                replies = list(pool.map(
+                    lambda b: post(port, {"images_b64": [b]}), blobs))
+                want = service.caption_image_bytes(
+                    [str(i).encode() for i in pixels])
+            check([s for s, _ in replies] == [200] * NATIVE_IMAGES
+                  and [r["captions"][0] for _, r in replies] == want,
+                  f"images_b64 bodies: {[s for s, _ in replies]}")
+            singles = [int(i) for i in rng.choice(NATIVE_ROWS,
+                                                  CLI_SERVE_REQUESTS)]
+            with ThreadPoolExecutor(32) as pool:
+                replies = list(pool.map(lambda i: post(port, {"id": i}),
+                                        singles))
+            check(all(s == 200 for s, _ in replies), "single-id requests")
+            same = sum(r["captions"][0] == w for (_, r), w in
+                       zip(replies, service.caption_ids(singles)))
+            check(same >= CAPTION_AGREEMENT * len(singles),
+                  f"{same}/{len(singles)} single-id captions equal to one "
+                  f"caption_ids burst")
+            health = post(port, None, "GET", "/healthz")
+            final = stats()
+            check(health == (200, {"ok": True, "ready": True,
+                                   "frontend": "native"})
+                  and final["frontend"] == "native",
+                  f"/healthz {health}, /stats {final}")
+            check(post(port, None, "GET", "/nope")[0] == 404
+                  and post(port, {"id": NATIVE_ROWS + 7})[0] == 400,
+                  "unknown route and unknown id")
+    finally:
+        t0 = time.perf_counter()
+        frontend.stop()
+        stop_s = time.perf_counter() - t0
+        service.close()
+    mark("answers")
+    check(not (frontend._pump.is_alive() or frontend._responder.is_alive()
+               or frontend._img_thread.is_alive()),
+          f"frontend threads alive after stop() ({stop_s:.1f} s)")
+    launches = read_counts(*fns)
+    used = {fn.__name__: _routes_used(fn) for fn in fns}
+
+    # launches by route: every search and encoder batch, from the routing
+    # functions on meta tensors
+    cfg = service.cfg
+    with np.load(os.path.join(joint, "params.npz")) as z:
+        convs = [z[f"cnn/{n}/w"].shape for n in CONV_NAMES]
+    steps = MAX_WORDS + 1
+    want = {"fused_conv3x3_relu": _scaled(expected_routes(
+        cfg, convs, 1, BEAM)["fused_conv3x3_relu"], len(encodes)),
+        "fused_lstm_step": {}, "topk_logsumexp": {}}
+    for rows_k in set(searches):
+        per_step = expected_routes(cfg, [], rows_k, BEAM)
+        for name in ("fused_lstm_step", "topk_logsumexp"):
+            for route, n in per_step[name].items():
+                want[name][route] = (want[name].get(route, 0)
+                                     + n * steps * searches.count(rows_k))
+    check(launches["topk_logsumexp"] == steps * len(searches)
+          and launches["fused_lstm_step"] == 2 * launches["topk_logsumexp"]
+          and launches["fused_conv3x3_relu"] == 13 * len(encodes)
+          and set(used["fused_lstm_step"]) == {"wgmma"}
+          and used == want,
+          f"launches {launches} by route {used} in {len(searches)} searches "
+          f"and {len(encodes)} encoder batches; want {want}")
+    print(f"[14 native] right answers: ids x{NATIVE_IDS}, raw features "
+          f"x{NATIVE_FEATURES}, {NATIVE_IMAGES} images_b64 requests equal to "
+          f"the service's own calls; {same}/{len(singles)} concurrent "
+          f"single-id requests equal to one caption_ids burst; /healthz, "
+          f"/stats, 404, 400 right; stop() in {stop_s:.2f} s; "
+          f"{len(searches)} searches ({min(searches)}-{max(searches)} LSTM "
+          f"rows), {len(encodes)} encoder batches, launches by route {used}")
+
+    # the rows served above (every stored row, the raw feature rows)
+    # through the kernels and the plain path, f32, TF32 off; the output
+    # projection scaled by CLI_F32_SHARPEN as in phase 13, so that fewer
+    # beams of the random decoder tie.  Over 2,064 searches a tie met
+    # early sends the two searches down other beams, whose final scores
+    # may differ by more than the tie (gaps up to 0.057 on the H100 at
+    # these rows), so each differing caption is held by its score instead:
+    # the plain path, teacher-forced along either search's caption, gives
+    # the score that search reported
+    served = np.concatenate([raw, rows]).astype(np.float32)
+    served /= served.sum(1, keepdims=True)
+    sharp = dict(tree, w_out=tree["w_out"] * CLI_F32_SHARPEN)
+    dec32 = params_from_numpy(sharp, "cuda", torch.float32)
+    feats = torch.from_numpy(served).cuda()
+    tok_k, sc_k = beam_search(dec32, feats, beam_width=BEAM,
+                              max_words=MAX_WORDS)
+    tok_p, sc_p = beam_search(dec32, feats, beam_width=BEAM,
+                              max_words=MAX_WORDS, use_kernels=False)
+    cap_k = detokenize_batch(tok_k.cpu().numpy(), service.vocab)
+    cap_p = detokenize_batch(tok_p.cpu().numpy(), service.vocab)
+    differ = [i for i, (a, b) in enumerate(zip(cap_k, cap_p)) if a != b]
+    check(len(differ) <= (1 - CAPTION_AGREEMENT) * len(served),
+          f"f32 native: {len(differ)}/{len(served)} captions differ")
+    rescored = [path_score_error(dec32, feats[differ], tok[differ],
+                                 sc[differ]) for tok, sc in
+                ((tok_k, sc_k), (tok_p, sc_p))] if differ else [0.0, 0.0]
+    check(max(rescored) <= SCORE_ATOL * CLI_F32_SHARPEN,
+          f"f32 native: the differing captions' scores rescored on the "
+          f"plain path are off by {rescored}")
+    print(f"[14 native f32] the {len(served)} rows served above (w_out x "
+          f"{CLI_F32_SHARPEN}), kernel vs plain path: "
+          f"{len(served) - len(differ)}/{len(served)} captions equal (need "
+          f"{CAPTION_AGREEMENT}); the {len(differ)} others' score gaps "
+          f"{[round(float(g), 6) for g in (sc_k - sc_p)[differ].abs()]}, "
+          f"each search's score of its own caption within "
+          f"{max(rescored):.3g} of the plain path's teacher-forced score "
+          f"(tol {SCORE_ATOL * CLI_F32_SHARPEN}); {len(set(cap_k))} "
+          f"distinct captions")
+    mark("f32")
+    print("[14 native] seconds by step: " + ", ".join(
+        f"{label} {t - marks[i][1]:.1f}"
+        for i, (label, t) in enumerate(marks[1:])))
+    return launches
+
+
+@torch.inference_mode()
+def path_score_error(decoder, feats, tokens, scores) -> float:
+    """How far each row's search score lies from the plain decode step's
+    log-probability of the row's caption, teacher-forced: the largest, over
+    rows, of the least difference over the steps where the search may
+    have stopped (those of the trailing EOS run, or the last step)."""
+    from lrcn_tpu_torch.core.vocab import EOS_ID
+    from lrcn_tpu_torch.models import lrcn
+
+    rows, width = tokens.shape
+    cnn = lrcn.cnn_projection(decoder, feats)
+    state = lrcn.init_state(decoder, rows, feats.device)
+    total = torch.zeros(rows, device=feats.device)
+    cum = []
+    for j in range(width - 1):
+        state, logits = lrcn.decode_step(decoder, state, tokens[:, j], cnn,
+                                         use_kernels=False)
+        total = total + torch.log_softmax(logits.float(), -1).gather(
+            1, tokens[:, j + 1:j + 2])[:, 0]
+        cum.append(total)
+    cum = torch.stack(cum, 1)                        # (rows, width - 1)
+    eos = tokens[:, 1:] == EOS_ID
+    stops = eos.flip(1).int().cumprod(1).flip(1).bool()   # trailing EOS run
+    stops[:, -1] = True
+    err = (cum - scores[:, None]).abs().masked_fill(~stops, float("inf"))
+    return err.min(1).values.max().item()
+
+
 # kernel name fragment -> the row of the profile table it adds to
 PROFILE_GROUPS = [
     ("fprop", "cuDNN convolutions, forward"),
@@ -2723,6 +3228,8 @@ def main() -> None:
     lap("12")
     by_path.update(phase_cli(smi))
     lap("13")
+    by_path["native_serve (phase 14)"] = phase_native(smi, tree)
+    lap("14")
     print("[time] seconds by phase: " + ", ".join(
         f"{label} {t - laps[i][1]:.1f}"
         for i, (label, t) in enumerate(laps[1:])))

@@ -18,7 +18,8 @@ raises: no command drops to the CPU on its own.
                                 (lrcn.jl:185) -> a native checkpoint
     lrcn-torch export-jld       the reverse
     lrcn-torch download         download_data.sh / karpathy_features.sh
-    lrcn-torch serve            the HTTP caption service (serve/http.py)
+    lrcn-torch serve            the HTTP caption service (serve/http.py, or
+                                serve/native_http.py with --native-frontend)
 
 Checkpoints, feature stores, candidate files and ``.jld`` files are those
 of the JAX package: each CLI reads what the other writes.  Seeds follow
@@ -28,8 +29,7 @@ come from this package's own ``torch.Generator`` streams.
 
 Not ported yet, and refused with a message naming the ``ROADMAP.md``
 item that brings them: ``--mesh``, ``--pipeline`` and the multi-host
-flags (item 7), ``serve --native-frontend`` (item 4) and the ``export``
-subcommand (item 6).
+flags (item 7) and the ``export`` subcommand (item 6).
 """
 
 from __future__ import annotations
@@ -380,8 +380,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feat-wait-ms", type=float, default=200.0,
                    help="native front-end: how long raw-feature rows "
                         "may age before dispatching when id traffic is "
-                        "also flowing (the native front end is not "
-                        "ported yet: ROADMAP.md queue 1 item 4)")
+                        "also flowing (a feature search costs about the "
+                        "same device time for a few rows as for a full "
+                        "burst); features go at once when nothing else "
+                        "is in flight")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="shard each batch over N devices (not ported "
                         "yet: ROADMAP.md queue 1 item 7)")
@@ -394,8 +396,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-search tail latency")
     p.add_argument("--native-frontend", action="store_true",
                    help="serve through the C++ HTTP front-end "
-                        "(native/httpserve.cpp; not ported yet: "
-                        "ROADMAP.md queue 1 item 4)")
+                        "(native/httpserve.cpp): per-request work out "
+                        "of the GIL; full request surface (ids, raw "
+                        "features, base64 images when an encoder is "
+                        "loaded)")
     p.add_argument("--request-timeout", type=float, default=60.0,
                    help="seconds a request may wait on the device "
                         "before HTTP 504")
@@ -440,7 +444,6 @@ _NOT_PORTED = {
     "--num-processes": (7, "multi-host runs"),
     "--process-id": (7, "multi-host runs"),
     "serve --mesh": (7, "serving over a device mesh"),
-    "serve --native-frontend": (4, "the C++ HTTP front end"),
     "export": (6, "frozen export"),
 }
 
@@ -999,12 +1002,42 @@ def cmd_serve(args) -> int:
 
     from lrcn_tpu_torch.serve import make_server
 
-    if args.native_frontend:
-        _refuse("serve --native-frontend")
     service = make_caption_service(args)
     print("serve: warming up (building the kernels, every burst "
           "shape)...", flush=True)
     service.warmup()
+
+    if args.native_frontend:
+        import threading
+
+        from lrcn_tpu_torch.serve import native_frontend
+
+        try:
+            frontend = native_frontend(
+                service, host=args.host, port=args.port,
+                max_queue=args.max_queue or 4096,
+                feat_wait_ms=args.feat_wait_ms)
+        except RuntimeError as e:       # never the Python server instead
+            service.close()
+            raise SystemExit(f"lrcn-torch serve --native-frontend: {e}")
+        print(f"serve: native frontend on http://{args.host}:"
+              f"{frontend.port}  (POST /v1/caption, GET /healthz, "
+              f"GET /stats)", flush=True)
+        stop = threading.Event()
+
+        def _stop(_signum, _frame):
+            stop.set()
+
+        signal.signal(signal.SIGTERM, _stop)
+        signal.signal(signal.SIGINT, _stop)
+        try:
+            stop.wait()
+        finally:
+            print("serve: draining and shutting down", flush=True)
+            frontend.stop()
+            service.close()
+        return 0
+
     server = make_server(service, args.host, args.port)
     host, port = server.server_address[:2]
     print(f"serve: listening on http://{host}:{port}  "

@@ -14,21 +14,29 @@ Requests for captions by image id and by fc7 rows queue behind a decode
 whole number of ``decode_batch``-row batches, up to ``MAX_DECODE_GROUPS``
 of them in one search (burst absorption), and enqueues the search on the
 device without waiting; the collector thread fetches the tokens and
-detokenizes them.  Requests by id ship int64 row indices into a feature
-table that lives on the device, uploaded once at construction (a store
-empty at construction gets no table: requests by id then go through the
-store's own lookup and the fc7-row batcher).  Requests by image go
-through the encode stage, then the fc7-row batcher.
+detokenizes them.  Nothing on the issue side waits for the device: every
+upload is staged in pinned host memory and queued behind the searches in
+flight, and every result's copy to the host is queued right after its
+search, with a CUDA event that the fetch waits on (not the whole stream,
+which would also wait for the searches issued after it).  The C++ front
+end (``serve/native_http.py``) issues through the same entry points.
+
+Requests by id ship int64 row indices into a feature table that lives on
+the device, uploaded once at construction (a store empty at construction
+gets no table: requests by id then go through the store's own lookup and
+the fc7-row batcher).  Requests by image go through the encode stage,
+then the fc7-row batcher.
 
 As in the JAX service, ``max_queue`` bounds each batcher's queue (a
 request beyond it raises ``BatcherOverloaded``, HTTP 503 in
 ``serve/http.py``) and ``max_burst_groups`` sets ``MAX_DECODE_GROUPS``.
 
-Not ported yet: the device mesh and the C++ front end.
+Not ported yet: the device mesh.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -90,10 +98,13 @@ class CaptionService:
                 raise ValueError("max_burst_groups must be >= 1")
             self.MAX_DECODE_GROUPS = int(max_burst_groups)
         max_batch = decode_batch * self.MAX_DECODE_GROUPS
+        self._feat_burst_warm = self._burst_warm = False
+        # every caller of this batcher (caption_features, the encode
+        # stage) has normalized its rows once already
         self._decode = DynamicBatcher(
-            self._decode_feats_grouped, finalize=self._decode_finalize,
-            max_batch=max_batch, max_wait_ms=max_wait_ms, name="decode",
-            max_queue=max_queue)
+            functools.partial(self._decode_feats_grouped, normalized=True),
+            finalize=self._decode_finalize, max_batch=max_batch,
+            max_wait_ms=max_wait_ms, name="decode", max_queue=max_queue)
         # Device-resident feature table: requests by id ship row indices
         # instead of fc7 rows.  In the compute dtype: the search casts its
         # features to it before first use, so this is bit-identical and
@@ -132,49 +143,92 @@ class CaptionService:
                              f"batches of {self.decode_batch}")
         return groups * self.decode_batch
 
-    def _decode_feats_grouped(self, rows: Sequence[np.ndarray]):
-        """ENQUEUE one search over already-normalized fc7 rows, padded to
-        whole batches; returns (n, device tokens) without waiting."""
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """``array`` on the service's device, without waiting for it.
+
+        A copy from pageable memory synchronizes the stream, which every
+        thread shares, so an upload would wait out the searches already
+        in flight.  Staged in pinned memory, the copy queues behind them
+        instead; the caching host allocator hands the pinned block out
+        again only after its copy has run."""
+        host = torch.from_numpy(array)
+        if self.device.type != "cuda":
+            return host
+        staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        staged.copy_(host)
+        return staged.to(self.device, non_blocking=True)
+
+    @torch.inference_mode()
+    def _fetch(self, n: int, result: torch.Tensor):
+        """Queue the copy of ``result`` to the host right behind the work
+        that computes it; returns ``(n, host tensor, event)`` at once.
+        The event marks the copy's end: a finalize waits for it alone, not
+        for the searches issued after this one (``.cpu()`` would)."""
+        if self.device.type != "cuda":
+            return n, result, None
+        host = torch.empty(result.shape, dtype=result.dtype,
+                           pin_memory=True)
+        host.copy_(result, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return n, host, done
+
+    @staticmethod
+    def _wait(raw) -> np.ndarray:
+        """The first ``n`` rows of a fetched result, once its copy ran."""
+        n, host, done = raw
+        if done is not None:
+            done.synchronize()
+        return host[:n].numpy()
+
+    def _decode_feats_grouped(self, rows: Sequence[np.ndarray],
+                              normalized: bool = False):
+        """ENQUEUE one search over fc7 rows, padded to whole batches;
+        returns the raw result for ``_decode_finalize`` without waiting.
+
+        With ``normalized=False`` the rows are L1-normalized here, like
+        ``caption_features`` (the native front end passes a request's raw
+        rows).  The decode batcher passes ``normalized=True``: its callers
+        normalize once already."""
+        rows = np.asarray(rows, np.float32)
+        if not normalized:
+            rows = l1_normalize(rows)
         n = len(rows)
         batch = np.zeros((self._padded_rows(n), self.cfg.cnn_feature_dim),
                          np.float32)
-        batch[:n] = np.asarray(rows, np.float32)
-        tokens, _ = search(self.decoder,
-                           torch.from_numpy(batch).to(self.device),
+        batch[:n] = rows
+        tokens, _ = search(self.decoder, self._upload(batch),
                            beam_width=self.beam_width,
                            max_words=self.max_words)
-        return n, tokens
+        # int32 on the device: half the bytes, and the C front end's type
+        return self._fetch(n, tokens.to(torch.int32))
 
     def _decode_rows_grouped(self, rows: Sequence[int]):
         """ENQUEUE one search over rows of the device-resident table."""
         n = len(rows)
         idx = np.zeros((self._padded_rows(n),), np.int64)
         idx[:n] = rows
-        tokens, _ = rows_search(self.decoder, self._table,
-                                torch.from_numpy(idx).to(self.device),
+        tokens, _ = rows_search(self.decoder, self._table, self._upload(idx),
                                 beam_width=self.beam_width,
                                 max_words=self.max_words)
-        return n, tokens
+        return self._fetch(n, tokens.to(torch.int32))
 
     def _decode_finalize(self, raw) -> list[str]:
-        n, tokens = raw
-        tokens = tokens[:n].cpu().numpy()   # waits for the device here
-        return detokenize_batch(tokens, self.vocab)
+        return detokenize_batch(self._wait(raw), self.vocab)
 
     def _encode_fn(self, images: Sequence[np.ndarray]):
         """ENQUEUE one padded encoder batch: upload uint8, normalize, VGG
-        to fc7, L1-normalize, all on the device; returns (n, device fc7
-        rows) without waiting."""
+        to fc7, L1-normalize, all on the device; returns the raw result
+        for ``_encode_finalize`` without waiting."""
         n = len(images)
         batch = np.zeros((self._encode.max_batch, CROP, CROP, 3), np.uint8)
         batch[:n] = np.asarray(images, np.uint8)
-        pixels = normalize_batch(torch.from_numpy(batch).to(self.device),
-                                 self._average_image)
-        return n, l1_normalize_device(vgg16_fc7(self.vgg, pixels))
+        pixels = normalize_batch(self._upload(batch), self._average_image)
+        return self._fetch(n, l1_normalize_device(vgg16_fc7(self.vgg,
+                                                            pixels)))
 
     def _encode_finalize(self, raw) -> list[np.ndarray]:
-        n, feats = raw
-        return list(feats[:n].cpu().numpy())   # waits for the device here
+        return list(self._wait(raw))
 
     # --- request side ---
 
@@ -262,21 +316,45 @@ class CaptionService:
         dim = self.cfg.cnn_feature_dim
         self._await_all([self._decode.submit(np.zeros(dim, np.float32))],
                         timeout_s=timeout_s)
+        self.warmup_feature_burst_shapes()
         if self._rows_batcher is not None:
             self._await_all([self._rows_batcher.submit(0)],
                             timeout_s=timeout_s)
-        for g in range(1, self.MAX_DECODE_GROUPS + 1):
-            n = self.decode_batch * (g - 1) + 1
-            self._decode_finalize(self._decode_feats_grouped(
-                [np.ones(dim, np.float32) / dim] * n))
-            if self._rows_batcher is not None:
-                self._decode_finalize(self._decode_rows_grouped([0] * n))
+            self.warmup_burst_shapes()
         if self._encode is not None:
             feat = self._await_all(
                 [self._encode.submit(np.zeros((CROP, CROP, 3), np.uint8))],
                 timeout_s=timeout_s)[0]
             self._await_all([self._decode.submit(feat)],
                             timeout_s=timeout_s)
+
+    def _burst_sizes(self) -> list[int]:
+        """One row count for each search size, 1..MAX_DECODE_GROUPS
+        batches."""
+        return [self.decode_batch * g + 1
+                for g in range(self.MAX_DECODE_GROUPS)]
+
+    def warmup_feature_burst_shapes(self) -> None:
+        """Run one feature search of every burst size, so that the first
+        requests of each size find the allocator and cuBLAS warm.
+        Idempotent; ``warmup()`` and the C++ front end call it."""
+        if self._feat_burst_warm:
+            return
+        dim = self.cfg.cnn_feature_dim
+        for n in self._burst_sizes():
+            self._decode_finalize(self._decode_feats_grouped(
+                np.ones((n, dim), np.float32)))
+        self._feat_burst_warm = True
+
+    def warmup_burst_shapes(self) -> None:
+        """The id path's counterpart of
+        :meth:`warmup_feature_burst_shapes` (nothing without a device
+        table)."""
+        if self._table is None or self._burst_warm:
+            return
+        for n in self._burst_sizes():
+            self._decode_finalize(self._decode_rows_grouped([0] * n))
+        self._burst_warm = True
 
     def stats(self) -> dict:
         out = {"decode": self._decode.stats.snapshot()}

@@ -211,8 +211,7 @@ def test_train_refuses_multi_device_flags(tmp_path, flags, item):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--native-frontend"], 4), (["--mesh", "2"], 7)])
+@pytest.mark.parametrize("flags, item", [(["--mesh", "2"], 7)])
 def test_serve_refuses_what_is_not_ported(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
         port_main(["serve", "--loadfile", str(tmp_path / "none"),
@@ -229,7 +228,6 @@ def test_export_refuses(tmp_path):
 def test_refusals_exit_nonzero_from_the_shell(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     for argv in (["export", "--loadfile", "x", "--out", "y"],
-                 ["serve", "--loadfile", "x", "--native-frontend"],
                  ["train", "--datafiles", "x.token", "--mesh", "1", "1"]):
         out = subprocess.run(
             [sys.executable, "-m", "lrcn_tpu_torch", "--device", "cpu",

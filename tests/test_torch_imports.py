@@ -55,6 +55,9 @@ SLICE_MODULES = [
     "lrcn_tpu_torch.data.jld",
     "lrcn_tpu_torch.data.download",
     "lrcn_tpu_torch.serve.http",
+    "lrcn_tpu_torch.serve.native_http",
+    "lrcn_tpu_torch.utils",
+    "lrcn_tpu_torch.utils.profiling",
 ]
 
 
@@ -90,7 +93,8 @@ def test_port_loads_no_jax_and_no_lrcn_tpu():
 
 def test_chip_smoke_imports_no_jax_and_no_pil():
     """Every module that chip_smoke.py imports, at top level or inside its
-    phases, loads nothing of JAX, ``lrcn_tpu`` or PIL."""
+    phases (phase 14's C++ front end, load generator and profiling module
+    among them), loads nothing of JAX, ``lrcn_tpu`` or PIL."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     modules = sorted({alias.name for node in ast.walk(tree)
@@ -99,9 +103,12 @@ def test_chip_smoke_imports_no_jax_and_no_pil():
                      | {node.module for node in ast.walk(tree)
                         if isinstance(node, ast.ImportFrom)
                         and node.level == 0 and node.module != "__future__"})
-    assert "lrcn_tpu_torch.models.vgg" in modules
-    proc = _run(_imports_nothing_forbidden(modules + ["chip_smoke"],
-                                           SCRIPT_FORBIDDEN))
+    assert {"lrcn_tpu_torch.models.vgg", "lrcn_tpu_torch.native",
+            "lrcn_tpu_torch.utils.profiling"} <= set(modules)
+    # phase 14's front end, which ``serve.native_frontend`` loads at call
+    proc = _run(_imports_nothing_forbidden(
+        modules + ["lrcn_tpu_torch.serve.native_http", "chip_smoke"],
+        SCRIPT_FORBIDDEN))
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -1,11 +1,14 @@
-"""The port's native host libraries against the JAX package's, on the CPU:
+"""The port's native host code against the JAX package's, on the CPU:
 the C++ sources are byte copies, they build into the port's own build
-directory, and the port's image loaders give the JAX package's pixels for
-every file (JPEGs through the native loader, PNGs and undecodable JPEGs
-through PIL), with the native libraries on and off."""
+directory (the HTTP front end and the load generator too), and the port's
+image loaders give the JAX package's pixels for every file (JPEGs through
+the native loader, PNGs and undecodable JPEGs through PIL), with the
+native libraries on and off."""
 
+import ctypes
 import filecmp
 import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -52,7 +55,8 @@ def files(tmp_path_factory):
 
 
 def test_cpp_sources_are_byte_copies():
-    for name in ("imageloader.cpp", "bleu.cpp"):
+    for name in ("imageloader.cpp", "bleu.cpp", "httpserve.cpp",
+                 "loadgen.cpp"):
         assert filecmp.cmp(os.path.join(REPO, "lrcn_tpu", "native", name),
                            os.path.join(REPO, "lrcn_tpu_torch", "native",
                                         name), shallow=False), name
@@ -74,8 +78,33 @@ def test_libraries_build_into_the_port_build_dir(monkeypatch):
     monkeypatch.setenv("LRCN_NATIVE", "0")
     assert native.imageloader_library() is None
     assert native.bleu_library() is None
+    assert native.httpserve_library() is None
+    assert native.loadgen_binary() is None
     assert images.load_batch_native(["x.jpg"]) is None
     assert images.decode_blobs_native([b"x"]) is None
+
+
+def test_front_end_and_loadgen_build_into_the_port_build_dir():
+    """The HTTP front end builds as ``libhttpserve_<hash>.so`` and the load
+    generator as the executable ``lrcn_loadgen_<hash>``, both in
+    ``build/lrcn_tpu_torch/native/``, each name changing with its source's
+    bytes and flags; the front end's C entry points have their argtypes."""
+    lib = native.httpserve_library()
+    assert lib is not None and lib._lrcn_configured
+    assert lib.lrcn_serve_start.restype is ctypes.c_void_p
+    path = native.library_path("httpserve")
+    assert path.exists() and path.parent == native.BUILD_DIR
+    assert path.name.startswith("libhttpserve_") and path.suffix == ".so"
+    exe = native.loadgen_binary()
+    assert exe == str(native.loadgen_path())
+    assert os.path.relpath(exe, REPO).startswith(
+        os.path.join("build", "lrcn_tpu_torch", "native", "lrcn_loadgen_"))
+    assert os.access(exe, os.X_OK)
+    usage = subprocess.run([exe], capture_output=True, text=True, timeout=30)
+    assert usage.returncode == 2 and "usage" in usage.stderr
+    assert native.loadgen_path() != native._hashed(
+        "loadgen", native.LOADGEN_FLAGS + ("-g",), "lrcn_loadgen_{}")
+    assert native.library_path("httpserve") != native.library_path("bleu")
 
 
 def test_native_batch_decode_matches_jax(files):
