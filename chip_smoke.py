@@ -5,6 +5,7 @@
                                        # 1x256 decodes, sampling, fc7
                                        # extraction, a training and a
                                        # joint dispatch (torch.profiler)
+    python3 chip_smoke.py --export     # instead: phases 1, 2 and 15 alone
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
@@ -20,7 +21,9 @@ exits nonzero:
    a pre-concatenated [x, h] (the GEMM alone);
    each case must take its route (bf16 aligned: wgmma, ragged: wmma, f32:
    fma), read from the per-route launch counters; the host time of one
-   launch of the wgmma route (TMA descriptors encoded) and the wmma route;
+   launch of the wgmma route (TMA descriptors encoded) and the wmma route,
+   and of a wrapper call through the op ``lrcn::lstm_step`` against the
+   op's CUDA implementation called directly;
 4. top-k + log-sum-exp kernel: every route (block, warp, rounds) that
    takes the case's k against the plain version, values and indices
    exact, at (768, 8800) k=3, 9, 12, (256, 8800) k=1, (12288, 8800) k=3,
@@ -29,7 +32,9 @@ exits nonzero:
    R=1 and 3, and k=V; the default route must be ``topk_lse_route``'s.
    At the timed shapes: each route's device time (torch.profiler kernel
    durations) in turns with v1 (or rounds above k=8), the wall time per
-   wrapper call (CUDA events), host time per wrapper call and per C launch,
+   wrapper call (CUDA events), host time per wrapper call (through the op
+   ``lrcn::topk_lse``), per direct call of its CUDA implementation and per
+   C launch,
    plain, ``torch.topk`` and the bound; the wrapper's host time by part;
 5. service: a JAX-format checkpoint at the reference width (random weights
    from a seed, an 8800-word synthetic vocab) and a 2048-row feature store
@@ -46,7 +51,9 @@ exits nonzero:
    kernel, the plain version and cuDNN's own conv in the same dtype, and
    the 13-conv stack sums of the three; the 12 aligned bf16 convs must take
    the wgmma route, conv1_1 and the ragged shape the scalar route, f32 the
-   fma route; the host time of one launch of the wgmma and scalar routes;
+   fma route; the host time of one launch of the wgmma and scalar routes,
+   and of a wrapper call through ``lrcn::conv3x3_relu`` against the
+   CUDA implementation called directly;
 8. image service: a JAX-format joint checkpoint (``cnn/`` and
    ``decoder/`` keys, ``average_image.npy``) with full-width random VGG-16
    weights is written, loaded on the card and served by image from
@@ -116,7 +123,23 @@ exits nonzero:
    traced window (``utils.profiling``), ids, raw features and images by
    HTTP equal to the service's own calls, launches by route from the
    searches and encoder batches run, ``stop()``, and every served row
-   through the kernels against the plain path at f32.
+   through the kernels against the plain path at f32;
+15. frozen export: ``lrcn_tpu_torch.cli.main(["export", ...])`` of phase
+   5's checkpoint (beam and greedy, sample in bf16; beam in f32) and of
+   phase 8's joint checkpoint (image, full VGG-16), ``--generate 20``, one
+   process a directory, all at once (``chip_smoke.py --export-cli``), with
+   the seconds to trace and save and the MB of each file; the directories
+   reloaded in two fresh processes (``chip_smoke.py --reload-export``)
+   that load nothing of ``lrcn_tpu_torch.models``, ``.decode`` or JAX;
+   there, beam at 1, 256 and 16x256 rows through the one file, greedy at
+   256, sample at 256 images with one seed twice, image at 8, f32 beam at
+   256, and the bf16 directory on the CPU, each call's kernel launches by
+   route (42 LSTM all wgmma and 21 top-k all block a search, 13 conv an
+   image batch at ``conv3x3_route``'s routes); the artifacts' captions
+   against the live path's on the same inputs (bf16: >= 99% equal, each
+   differing one held by its score; sample: equal tokens under one seed;
+   f32: >= 99% equal tokens), and the beam artifact's captions/s against
+   the live path's at 1x256 and 16x256.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
@@ -274,6 +297,23 @@ NATIVE_IDS, NATIVE_FEATURES, NATIVE_IMAGES = 64, 16, 8
 #  the issue and fetch paths must not wait for the device: held against a
 #  device-side spin of this long on the stream every thread shares
 NATIVE_STALL_MS = 300.0
+
+# frozen export (phase 15): ``lrcn-torch export`` of phase 5's checkpoint
+# (beam and greedy, sample in bf16; beam in f32) and of phase 8's joint
+# checkpoint (image), reloaded in two fresh processes (``--reload-export``,
+# the parts below); the beam artifact runs 1, 256 and 16x256 rows through
+# one file
+SCRIPT = os.path.join(REPO, "chip_smoke.py")
+RELOAD_PARTS = {"beam": ("bf16",), "rest": ("sample", "f32", "image")}
+EXPORT_ROWS = (1, DECODE_BATCH, 16 * DECODE_BATCH)
+EXPORT_IMAGES = ENCODE_BATCH
+EXPORT_SEED = 11            # the sample artifact's seed
+EXPORT_ITERS = 3            # timed calls, after a warm-up one
+EXPORT_CPU_ROWS = 4         # rows of the bf16 directory run on the CPU
+#  a caption of an artifact that differs from the live path's is held by
+#  its score, as phase 14 holds one: the plain path teacher-forced along it
+#  gives the search's own score within this
+EXPORT_SCORE_ATOL = 0.008
 
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
@@ -474,7 +514,7 @@ def lstm_bound(rows: int, x_dim: int, h_dim: int, w_bytes: int
 def phase_lstm(tree, rng) -> dict:
     from lrcn_tpu_torch.ops.kernels import (build, fused_lstm_step,
                                             lstm_step_reference)
-    from lrcn_tpu_torch.ops.kernels.lstm_step import ROUTES
+    from lrcn_tpu_torch.ops.kernels.lstm_step import ROUTES, lstm_step_cuda
 
     rows = DECODE_BATCH * BEAM
     cases = [(f"layer{n} {dtype}".replace("torch.", ""),
@@ -561,6 +601,13 @@ def phase_lstm(tree, rng) -> dict:
     print(f"[3 lstm_step] host time per C launch at {rows} rows: wgmma "
           f"{host['wgmma']:.2f} us (4 TMA maps encoded), wmma "
           f"{host['wmma']:.2f} us")
+    # a wrapper call through the op (the dispatcher, then the CUDA
+    # implementation) against the CUDA implementation called directly
+    op_us = host_us(lambda: fused_lstm_step(w, b, h, c, x))
+    impl_us = host_us(lambda: lstm_step_cuda(w, b, h, c, x))
+    print(f"[3 lstm_step] host time per wrapper call at {rows} rows "
+          f"(wgmma): through lrcn::lstm_step {op_us:.2f} us, the CUDA "
+          f"implementation called directly {impl_us:.2f} us")
     ms, plain, lib, bnd, by = times["layer1 bfloat16"]
     s_ms, s_plain, s_lib, s_bnd, _ = times["layer1 bfloat16 sampling"]
     return {"name": "fused_lstm_step", "route": "cuda",
@@ -570,7 +617,8 @@ def phase_lstm(tree, rng) -> dict:
             "kernel_route": "wgmma", "max_abs_err": worst, "ms": ms,
             "plain_ms": plain, "library_ms": lib, "library": "torch.mm",
             "bound_ms": bnd, "bound_by": by,
-            "host_us": host["wgmma"],
+            "host_us": host["wgmma"], "op": "lrcn::lstm_step",
+            "host_op_us": op_us, "host_impl_us": impl_us,
             "sampling_shape": f"rows={SAMPLE_IMAGES * SAMPLE_N}",
             "sampling_ms": s_ms, "sampling_plain_ms": s_plain,
             "sampling_library_ms": s_lib, "sampling_bound_ms": s_bnd}
@@ -614,6 +662,7 @@ def phase_topk(rng) -> dict:
     from lrcn_tpu_torch.ops.kernels import (build, topk_logsumexp,
                                             topk_logsumexp_reference)
     from lrcn_tpu_torch.ops.kernels.topk_lse import (MAX_K, ROUTES,
+                                                     topk_lse_cuda,
                                                      topk_lse_route)
 
     rows = DECODE_BATCH * BEAM
@@ -683,6 +732,7 @@ def phase_topk(rng) -> dict:
         wall = median_ms(lambda: topk_logsumexp(x, k),
                          **(dict(reps=7, inner=3) if big_rows else {}))
         host = host_us(lambda: topk_logsumexp(x, k))
+        host_impl = host_us(lambda: topk_lse_cuda(x, k))
         vals, idx, lse = (torch.empty((r, k), device="cuda"),
                           torch.empty((r, k), device="cuda",
                                       dtype=torch.int32),
@@ -696,12 +746,14 @@ def phase_topk(rng) -> dict:
                         else 30, one_kernel=False)
         bnd, by = topk_bound(r, v, k)
         timed[label] = dict(ms=dev[default], other_ms=dev[other], wall=wall,
-                            host=host, host_c=host_c, plain=plain, lib=lib,
-                            bnd=bnd, by=by)
+                            host=host, host_impl=host_impl, host_c=host_c,
+                            plain=plain, lib=lib, bnd=bnd, by=by)
         print(f"[4 topk_logsumexp] {label} {tuple(x.shape)} k={k}: device "
               f"{default} {dev[default]:.4f} ms, {other} {dev[other]:.4f} ms "
               f"(in turns); wall per call {wall:.4f} ms; host per wrapper "
-              f"call {host:.2f} us, per C launch {host_c:.2f} us; plain "
+              f"call through lrcn::topk_lse {host:.2f} us, per direct call "
+              f"of the CUDA implementation {host_impl:.2f} us, per C launch "
+              f"{host_c:.2f} us; plain "
               f"{plain:.4f} ms; torch.topk {lib:.4f} ms; bound {bnd:.4f} ms "
               f"({by}), {bnd / dev[default]:.1%} of it")
     # the wrapper's host time by part at the beam shape: what it skips once
@@ -742,7 +794,8 @@ def phase_topk(rng) -> dict:
             "plain_ms": t["plain"], "library_ms": t["lib"],
             "library": "torch.topk", "bound_ms": t["bnd"],
             "bound_by": t["by"], "host_us": t["host"],
-            "host_c_us": t["host_c"],
+            "op": "lrcn::topk_lse", "host_op_us": t["host"],
+            "host_impl_us": t["host_impl"], "host_c_us": t["host_c"],
             "timing": "device time from torch.profiler (ms, v1_ms, "
                       "plain_ms, library_ms); wall_ms by CUDA events"}
 
@@ -912,7 +965,7 @@ def phase_conv() -> dict:
 
     from lrcn_tpu_torch.ops.kernels import (build, conv3x3_relu_reference,
                                             fused_conv3x3_relu)
-    from lrcn_tpu_torch.ops.kernels.conv3x3 import ROUTES
+    from lrcn_tpu_torch.ops.kernels.conv3x3 import ROUTES, conv3x3_relu_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -998,6 +1051,11 @@ def phase_conv() -> dict:
     print(f"[7 conv3x3] host time per C launch at {h}x{h}x{c}->{f}: wgmma "
           f"{host['wgmma']:.2f} us (2 TMA maps encoded), scalar "
           f"{host['scalar']:.2f} us")
+    op_us = host_us(lambda: fused_conv3x3_relu(x, w, b))
+    impl_us = host_us(lambda: conv3x3_relu_cuda(x, w, b))
+    print(f"[7 conv3x3] host time per wrapper call at {h}x{h}x{c}->{f} "
+          f"(wgmma): through lrcn::conv3x3_relu {op_us:.2f} us, the CUDA "
+          f"implementation called directly {impl_us:.2f} us")
     h, c, f = REPORT_CONV
     ms, plain, cudnn, bnd, by = times[f"{h}x{h}x{c}->{f} bfloat16"]
     return {"name": "fused_conv3x3_relu", "route": "cuda",
@@ -1008,7 +1066,9 @@ def phase_conv() -> dict:
             "plain_ms": plain, "library_ms": cudnn,
             "library": "F.conv2d (cuDNN) + relu", "bound_ms": bnd,
             "bound_by": by, "host_us": host["wgmma"],
-            "stack_ms": stack[0], "stack_library_ms": stack[2],
+            "op": "lrcn::conv3x3_relu", "host_op_us": op_us,
+            "host_impl_us": impl_us, "stack_ms": stack[0],
+            "stack_library_ms": stack[2],
             "stack_bound_ms": stack[3]}
 
 
@@ -1033,8 +1093,23 @@ def random_vgg(rng: np.random.Generator) -> dict[str, np.ndarray]:
     return tree
 
 
-def phase_images(tree, rng) -> dict:
+def write_joint_checkpoint(path: str, tree: dict, rng) -> None:
+    """A JAX-format joint checkpoint at the reference width: the decoder
+    ``tree``, a full-width random VGG-16 drawn from ``rng`` and a mean
+    image of ImageNet's channel means."""
     from lrcn_tpu_torch.config import LRCNConfig
+
+    cfg = LRCNConfig(hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+                     vocab_size=VOCAB, compute_dtype="bfloat16")
+    joint = {f"decoder/{k}": v for k, v in tree.items()}
+    joint.update({f"cnn/{k}": v for k, v in random_vgg(rng).items()})
+    write_checkpoint(path, joint, cfg)
+    mean = np.array([123.68, 116.78, 103.94], np.float32)
+    np.save(os.path.join(path, "average_image.npy"),
+            np.broadcast_to(mean, (224, 224, 3)))
+
+
+def phase_images(tree, rng) -> dict:
     from lrcn_tpu_torch.data.images import normalize_batch
     from lrcn_tpu_torch.decode.beam import beam_search
     from lrcn_tpu_torch.models.vgg import l1_normalize, vgg16_fc7
@@ -1043,16 +1118,8 @@ def phase_images(tree, rng) -> dict:
     from lrcn_tpu_torch.serve import CaptionService
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
 
-    cfg = LRCNConfig(hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
-                     vocab_size=VOCAB, compute_dtype="bfloat16")
     path = os.path.join(WORK, "joint")
-    joint = {f"decoder/{k}": v for k, v in tree.items()}
-    joint.update({f"cnn/{k}": v for k, v in random_vgg(rng).items()})
-    write_checkpoint(path, joint, cfg)
-    mean = np.array([123.68, 116.78, 103.94], np.float32)
-    np.save(os.path.join(path, "average_image.npy"),
-            np.broadcast_to(mean, (224, 224, 3)))
-    del joint
+    write_joint_checkpoint(path, tree, rng)
 
     ck = load_checkpoint(path, device="cuda")
     check(ck["vgg"] is not None, "joint checkpoint loaded without its VGG")
@@ -3040,6 +3107,374 @@ def phase_native(smi: str, tree: dict) -> dict[str, int]:
     return launches
 
 
+def captions_per_s(run, rows: int, iters: int = EXPORT_ITERS) -> float:
+    """Captions/s of ``run``, a search returning (tokens, scores), over
+    ``iters`` calls back to back after one warm-up call; the last call's
+    tokens are fetched."""
+    run()[0].cpu()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tokens = run()[0]
+    tokens.cpu()
+    return iters * rows / (time.perf_counter() - t0)
+
+
+def finish(proc: subprocess.Popen, timeout: float) -> tuple[int, str, str]:
+    """(exit code, stdout, stderr) of ``proc``, killed after ``timeout``
+    seconds."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err
+
+
+def export_cli(argv: list) -> None:
+    """``chip_smoke.py --export-cli ARGS``: ``lrcn-torch export ARGS`` in
+    this process (the CLI's default device, the card), printing as its
+    last line the seconds of each trace and each save, in order."""
+    import contextlib
+    import io
+
+    from lrcn_tpu_torch import cli
+    from lrcn_tpu_torch import export as export_mod
+
+    traces: list = []
+    saves: list = []
+    with timed(export_mod, "export_decoder", traces), \
+            timed(export_mod, "export_image_pipeline", traces), \
+            timed(torch.export, "save", saves), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main([*CLI_DEVICE_FLAGS, "export", *argv])
+    check(rc == 0, f"lrcn-torch export {argv} returned {rc}")
+    print(json.dumps({"traces": traces, "saves": saves}))
+
+
+def reload_exported(work: str, part: str) -> None:
+    """``chip_smoke.py --reload-export WORK PART``: phase 15's consumer, in
+    a fresh process.  Loads PART's export directories under ``WORK`` on
+    the card through ``lrcn_tpu_torch.export`` alone and runs each
+    artifact on ``WORK/inputs.npz``, the kernels' counters read around one
+    call of each; part "beam" then waits for ``WORK/go`` (the other part
+    done) and times the beam artifact, part "rest" also loads the bf16
+    directory on the CPU.  Tokens, scores, counts and times go to
+    ``WORK/reload_PART.*`` for phase 15 to check."""
+    from lrcn_tpu_torch.export import load_exported
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    t0 = time.perf_counter()
+    models = {name: load_exported(os.path.join(work, name), "cuda")
+              for name in RELOAD_PARTS[part]}
+    load_s = time.perf_counter() - t0
+    inputs = np.load(os.path.join(work, "inputs.npz"))
+    feats = torch.from_numpy(inputs["feats"]).cuda()
+    results, counts, routes, rates = {}, {}, {}, {}
+    info = {"load_s": load_s}
+
+    def call(label: str, model, variant: str, *args) -> None:
+        model.call(variant, *args)                  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(*fns)
+        tokens, scores = model.call(variant, *args)
+        results[f"{label} tokens"] = tokens.cpu().numpy()
+        results[f"{label} scores"] = scores.cpu().numpy()
+        counts[label] = read_counts(*fns)
+        routes[label] = {fn.__name__: _routes_used(fn) for fn in fns}
+
+    if part == "beam":
+        bf16 = models["bf16"]
+        for rows in EXPORT_ROWS:
+            call(f"beam {rows}", bf16, "beam", feats[:rows])
+        call(f"greedy {DECODE_BATCH}", bf16, "greedy", feats[:DECODE_BATCH])
+        go = os.path.join(work, "go")
+        deadline = time.monotonic() + 900
+        while not os.path.exists(go):
+            check(time.monotonic() < deadline, "no go file in 900 s")
+            time.sleep(0.2)
+        for rows in EXPORT_ROWS[1:]:
+            rates[f"beam {rows}"] = captions_per_s(
+                lambda: bf16.call("beam", feats[:rows]), rows)
+    else:
+        sample = feats[:SAMPLE_IMAGES]
+        call(f"sample {SAMPLE_IMAGES}", models["sample"], "sample", sample,
+             EXPORT_SEED)
+        results["sample again tokens"] = models["sample"].call(
+            "sample", sample, EXPORT_SEED)[0].cpu().numpy()
+        call(f"image {EXPORT_IMAGES}", models["image"], "image",
+             torch.from_numpy(inputs["pixels"]).cuda())
+        call(f"beam f32 {DECODE_BATCH}", models["f32"], "beam",
+             feats[:DECODE_BATCH])
+        # the bf16 directory on the CPU (its matmuls on lrcn::mm_f32's CPU
+        # route, its kernels' plain versions)
+        t0 = time.perf_counter()
+        cpu = load_exported(os.path.join(work, "bf16"), "cpu")
+        tokens, scores = cpu.call("beam", inputs["feats"][:EXPORT_CPU_ROWS])
+        info["cpu_s"] = time.perf_counter() - t0
+        results["beam cpu tokens"] = tokens.numpy()
+        results["beam cpu scores"] = scores.numpy()
+    present = [name for name in ("lrcn_tpu_torch.models",
+                                 "lrcn_tpu_torch.decode", "jax")
+               if name in sys.modules]
+    np.savez(os.path.join(work, f"reload_{part}.npz"), **results)
+    info.update(counts=counts, routes=routes, rates=rates, present=present)
+    with open(os.path.join(work, f"reload_{part}.json"), "w") as f:
+        json.dump(info, f)
+    print(f"[15 export reload {part}] a fresh process loaded "
+          f"{list(RELOAD_PARTS[part])} on the card in {load_s:.1f} s"
+          + (f", and the bf16 directory on the CPU (+ {EXPORT_CPU_ROWS} "
+             f"rows through it) in {info['cpu_s']:.1f} s" if "cpu_s" in info
+             else "")
+          + f"; of lrcn_tpu_torch.models, lrcn_tpu_torch.decode and jax, "
+          f"{present or 'none'} in sys.modules")
+
+
+def check_export_captions(label: str, decoder, feats, got, want, vocab
+                          ) -> str:
+    """Hold an artifact's captions against the live path's on the same
+    rows: at least CAPTION_AGREEMENT equal, and each differing one held by
+    its score (the plain path teacher-forced along either search's caption
+    gives that search's own score within EXPORT_SCORE_ATOL)."""
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+
+    (tok_a, sc_a), (tok_l, sc_l) = got, want
+    cap_a = detokenize_batch(tok_a, vocab)
+    cap_l = detokenize_batch(tok_l.cpu().numpy(), vocab)
+    differ = [i for i, (a, b) in enumerate(zip(cap_a, cap_l)) if a != b]
+    check(len(differ) <= (1 - CAPTION_AGREEMENT) * len(cap_a),
+          f"{label}: {len(differ)}/{len(cap_a)} captions differ from the "
+          f"live path's")
+    rescored = [0.0]
+    if differ:
+        rows = torch.tensor(differ, device=feats.device)
+        rescored = [path_score_error(
+            decoder, feats[rows], torch.as_tensor(tok).to(feats.device)[rows],
+            torch.as_tensor(sc).to(feats.device)[rows])
+            for tok, sc in ((tok_a, sc_a), (tok_l, sc_l))]
+        check(max(rescored) <= EXPORT_SCORE_ATOL,
+              f"{label}: the differing captions' scores rescored on the "
+              f"plain path are off by {rescored}")
+    gap = float(np.abs(sc_a - sc_l.cpu().numpy()).max())
+    return (f"{len(cap_a) - len(differ)}/{len(cap_a)} captions equal to the "
+            f"live path's (max score gap {gap:.3g}; differing ones rescored "
+            f"within {max(rescored):.3g}, tol {EXPORT_SCORE_ATOL})")
+
+
+def phase_export(smi: str) -> dict[str, dict]:
+    """Phase 15: ``lrcn-torch export`` of phase 5's checkpoint (beam and
+    greedy, sample in bf16; beam in f32) and phase 8's joint checkpoint
+    (image, bf16) at the reference width, one process a directory
+    (``export_cli``), the directories reloaded and run in two fresh
+    processes (``reload_exported``), and every artifact held against the
+    live path on the same inputs.  Returns the kernels' launches of one
+    beam, sample and image call of the artifacts."""
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.core.vocab import BOS_ID
+    from lrcn_tpu_torch.data.images import normalize_batch
+    from lrcn_tpu_torch.decode.beam import beam_search, greedy_search
+    from lrcn_tpu_torch.decode.sample import best_of_n_search
+    from lrcn_tpu_torch.models.vgg import CONV_NAMES, l1_normalize, vgg16_fc7
+    from lrcn_tpu_torch.ops.kernels.topk_lse import topk_lse_route
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "export")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt, joint = os.path.join(WORK, "ckpt"), os.path.join(WORK, "joint")
+    common = ["--beam_width", str(BEAM), "--generate", str(MAX_WORDS)]
+    runs = {"bf16": ["--loadfile", ckpt, "--variants", "beam,greedy"],
+            "sample": ["--loadfile", ckpt, "--variants", "sample",
+                       "--sample-n", str(SAMPLE_N), "--temperature",
+                       str(SAMPLE_T)],
+            "f32": ["--loadfile", ckpt, "--compute-dtype", "float32"],
+            "image": ["--loadfile", joint, "--variants", "image"]}
+    # one process a directory, all started together: tracing is host-bound
+    # Python, one core each
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, SCRIPT, "--export-cli", "--out",
+         os.path.join(work, name), *common, *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+        for name, argv in runs.items()}
+    outs = {name: finish(proc, 900) for name, proc in procs.items()}
+    export_s = time.perf_counter() - t0
+    for name, (code, out, err) in outs.items():
+        check(code == 0, f"lrcn-torch export {name} exited {code}:\n"
+                         f"{err[-6000:]}")
+    files = [("beam", "bf16"), ("greedy", "bf16"), ("sample", "sample"),
+             ("beam", "f32"), ("image", "image")]
+    times = {}
+    for name, (_, out, _) in outs.items():
+        logged = json.loads(out.strip().splitlines()[-1])
+        variants = [v for v, d in files if d == name]
+        check(len(logged["traces"]) == len(logged["saves"]) == len(variants),
+              f"export {name}: {logged} for {variants}")
+        for v, t, sv in zip(variants, logged["traces"], logged["saves"]):
+            times[v, name] = (t, sv)
+    sizes = {(v, d): os.path.getsize(os.path.join(work, d, f"{v}.pt2")) / 1e6
+             for v, d in files}
+    print(f"[15 export] lrcn-torch export at hidden {HIDDEN}, vocab {VOCAB},"
+          f" --generate {MAX_WORDS}, beam {BEAM}, {len(runs)} processes at "
+          f"once, {export_s:.1f} s in all; per artifact (trace s, save s, "
+          f"MB): " + ", ".join(
+              f"{v} {d}: {times[v, d][0]:.1f} s, {times[v, d][1]:.1f} s, "
+              f"{sizes[v, d]:.1f} MB" for v, d in files) + f" on {smi}")
+
+    rng = np.random.default_rng(SEED + 15)
+    raw = np.abs(rng.standard_normal((EXPORT_ROWS[-1], CNN_DIM), np.float32))
+    feats_np = (raw / raw.sum(axis=1, keepdims=True)).astype(np.float32)
+    pixels_np = rng.integers(0, 256, (EXPORT_IMAGES, 224, 224, 3), np.uint8)
+    np.savez(os.path.join(work, "inputs.npz"), feats=feats_np,
+             pixels=pixels_np)
+    # two fresh processes; the beam part times its artifact only after the
+    # other part is done (the "go" file), so that nothing else runs then
+    t0 = time.perf_counter()
+    procs = {part: subprocess.Popen(
+        [sys.executable, SCRIPT, "--reload-export", work, part],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+        for part in RELOAD_PARTS}
+    code, out, err = finish(procs["rest"], 900)
+    if code == 0:
+        open(os.path.join(work, "go"), "w").close()
+    else:
+        procs["beam"].kill()
+    sys.stdout.write(out)
+    check(code == 0, f"the export reload (rest) exited {code}:\n"
+                     f"{err[-6000:]}")
+    code, out, err = finish(procs["beam"], 900)
+    sys.stdout.write(out)
+    check(code == 0, f"the export reload (beam) exited {code}:\n"
+                     f"{err[-6000:]}")
+    reload_s = time.perf_counter() - t0
+    info = {"counts": {}, "routes": {}}
+    got = {}
+    for part in RELOAD_PARTS:
+        with open(os.path.join(work, f"reload_{part}.json")) as f:
+            one = json.load(f)
+        check(one["present"] == [], f"the reload ({part}) imported "
+                                    f"{one['present']}")
+        info["counts"].update(one["counts"])
+        info["routes"].update(one["routes"])
+        if one["rates"]:
+            info["rates"] = one["rates"]
+        got.update(np.load(os.path.join(work, f"reload_{part}.npz")))
+
+    # launches of one call of each artifact: the live path's
+    steps = MAX_WORDS + 1
+    cfg = LRCNConfig(hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+                     vocab_size=VOCAB)
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    with np.load(os.path.join(joint, "params.npz")) as z:
+        convs = [z[f"cnn/{n}/w"].shape for n in CONV_NAMES]
+    conv_routes = expected_routes(cfg, convs, 1, BEAM)["fused_conv3x3_relu"]
+    search = {"fused_lstm_step": {"wgmma": 2 * steps},
+              "topk_logsumexp": {topk_lse_route(meta(DECODE_BATCH * BEAM,
+                                                     VOCAB), BEAM): steps}}
+    want = {f"beam {r}": search for r in EXPORT_ROWS}
+    want[f"greedy {DECODE_BATCH}"] = {
+        "fused_lstm_step": {"wgmma": 2 * steps},
+        "topk_logsumexp": {topk_lse_route(meta(DECODE_BATCH, VOCAB), 1):
+                           steps}}
+    want[f"sample {SAMPLE_IMAGES}"] = {"fused_lstm_step": {"wgmma":
+                                                           2 * steps}}
+    want[f"image {EXPORT_IMAGES}"] = dict(search,
+                                          fused_conv3x3_relu=conv_routes)
+    want[f"beam f32 {DECODE_BATCH}"] = dict(
+        search, fused_lstm_step={"fma": 2 * steps})
+    for label, routes in want.items():
+        used = {k: v for k, v in info["routes"][label].items() if v}
+        check(used == routes, f"export {label}: launches by route {used}, "
+                              f"want {routes}")
+
+    # right answers against the live path on the same inputs
+    ck = load_checkpoint(ckpt, device="cuda")
+    decoder, vocab = ck["decoder"], ck["vocab"]
+    feats = torch.from_numpy(feats_np).cuda()
+    lines = []
+    for rows in EXPORT_ROWS:
+        live = beam_search(decoder, feats[:rows], beam_width=BEAM,
+                           max_words=MAX_WORDS)
+        lines.append(f"beam {rows}: " + check_export_captions(
+            f"export beam {rows}", decoder, feats[:rows],
+            (got[f"beam {rows} tokens"], got[f"beam {rows} scores"]), live,
+            vocab))
+    live = greedy_search(decoder, feats[:DECODE_BATCH], max_words=MAX_WORDS)
+    lines.append(f"greedy {DECODE_BATCH}: " + check_export_captions(
+        "export greedy", decoder, feats[:DECODE_BATCH],
+        (got[f"greedy {DECODE_BATCH} tokens"],
+         got[f"greedy {DECODE_BATCH} scores"]), live, vocab))
+    gen = torch.Generator(device="cuda").manual_seed(EXPORT_SEED)
+    live_t, _ = best_of_n_search(decoder, feats[:SAMPLE_IMAGES],
+                                 n_samples=SAMPLE_N, temperature=SAMPLE_T,
+                                 max_words=MAX_WORDS, generator=gen)
+    sample_t = got[f"sample {SAMPLE_IMAGES} tokens"]
+    check(np.array_equal(sample_t, got["sample again tokens"]),
+          "export sample: the same seed gave other tokens")
+    check(np.array_equal(sample_t, live_t.cpu().numpy()),
+          "export sample: tokens differ from the live path's under the "
+          "same seed")
+    rates = {}
+    for rows in EXPORT_ROWS[1:]:
+        rates[rows] = captions_per_s(lambda: beam_search(
+            decoder, feats[:rows], beam_width=BEAM, max_words=MAX_WORDS),
+            rows)
+    del ck, decoder
+    ckj = load_checkpoint(joint, device="cuda")
+    avg = torch.from_numpy(ckj["average_image"]).cuda()
+    pixels = torch.from_numpy(pixels_np).cuda()
+    fc7 = l1_normalize(vgg16_fc7(ckj["vgg"], normalize_batch(pixels, avg)))
+    live = beam_search(ckj["decoder"], fc7, beam_width=BEAM,
+                       max_words=MAX_WORDS)
+    lines.append(f"image {EXPORT_IMAGES}: " + check_export_captions(
+        "export image", ckj["decoder"], fc7,
+        (got[f"image {EXPORT_IMAGES} tokens"],
+         got[f"image {EXPORT_IMAGES} scores"]), live, ckj["vocab"]))
+    del ckj, fc7
+    dec32 = load_checkpoint(ckpt, device="cuda",
+                            compute_dtype=torch.float32)["decoder"]
+    tok32, _ = beam_search(dec32, feats[:DECODE_BATCH], beam_width=BEAM,
+                           max_words=MAX_WORDS)
+    equal32 = (got[f"beam f32 {DECODE_BATCH} tokens"]
+               == tok32.cpu().numpy()).all(axis=1).mean()
+    check(equal32 >= CAPTION_AGREEMENT, f"export f32 beam: {equal32:.4f} of "
+                                        f"the rows' tokens equal the live "
+                                        f"path's")
+    cpu_t = got["beam cpu tokens"]
+    check(cpu_t.shape == (EXPORT_CPU_ROWS, MAX_WORDS + 2)
+          and (cpu_t[:, 0] == BOS_ID).all()
+          and np.isfinite(got["beam cpu scores"]).all(),
+          "export beam on the CPU: malformed result")
+    cpu_equal = int((cpu_t == got[f"beam {DECODE_BATCH} tokens"][
+        :EXPORT_CPU_ROWS]).all(axis=1).sum())
+    print(f"[15 export] right answers, bf16: " + "; ".join(lines)
+          + f"; sample {SAMPLE_IMAGES} (best-of-{SAMPLE_N}, seed "
+          f"{EXPORT_SEED}): tokens equal for the seed twice and to the live "
+          f"path's under torch.Generator('cuda').manual_seed({EXPORT_SEED});"
+          f" f32 beam {DECODE_BATCH} (TF32 off): {equal32:.4f} of the rows' "
+          f"tokens equal to the live path's (need {CAPTION_AGREEMENT}); the "
+          f"bf16 directory on the CPU: {cpu_equal}/{EXPORT_CPU_ROWS} rows "
+          f"equal to the card's (printed, not held: bf16 sums in another "
+          f"order)")
+    print(f"[15 export] launches per call, by route: " + "; ".join(
+        f"{label}: {info['routes'][label]}" for label in want))
+    print("[15 export] captions/s, beam-{} bf16, the loaded artifact vs the "
+          "live path (f32 fc7 rows, the same call): ".format(BEAM)
+          + ", ".join(f"{rows // DECODE_BATCH}x{DECODE_BATCH}: "
+                      f"{info['rates'][f'beam {rows}']:.1f} vs "
+                      f"{rates[rows]:.1f}" for rows in EXPORT_ROWS[1:])
+          + f" on {smi}; reload processes {reload_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"export_beam": info["counts"][f"beam {DECODE_BATCH}"],
+            "export_sample": info["counts"][f"sample {SAMPLE_IMAGES}"],
+            "export_image": info["counts"][f"image {EXPORT_IMAGES}"]}
+
+
 @torch.inference_mode()
 def path_score_error(decoder, feats, tokens, scores) -> float:
     """How far each row's search score lies from the plain decode step's
@@ -3192,10 +3627,27 @@ def main() -> None:
     def lap(label: str) -> None:
         laps.append((label, time.perf_counter()))
 
+    if sys.argv[1:2] == ["--reload-export"]:
+        reload_exported(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--export-cli"]:
+        export_cli(sys.argv[2:])
+        return
     name, smi = phase_card()
     phase_build()
     if sys.argv[1:] == ["--profile"]:
         profile_paths(smi)
+        return
+    if sys.argv[1:] == ["--export"]:
+        tree = random_tree(rng)
+        shutil.rmtree(WORK, ignore_errors=True)
+        from lrcn_tpu_torch.config import LRCNConfig
+        write_checkpoint(os.path.join(WORK, "ckpt"), tree, LRCNConfig(
+            hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+            vocab_size=VOCAB, compute_dtype="bfloat16"))
+        write_joint_checkpoint(os.path.join(WORK, "joint"), tree, rng)
+        print(json.dumps(phase_export(smi)))
+        shutil.rmtree(WORK, ignore_errors=True)
         return
     lap("1-2")
     tree = random_tree(rng)
@@ -3230,6 +3682,8 @@ def main() -> None:
     lap("13")
     by_path["native_serve (phase 14)"] = phase_native(smi, tree)
     lap("14")
+    by_path.update(phase_export(smi))
+    lap("15")
     print("[time] seconds by phase: " + ", ".join(
         f"{label} {t - laps[i][1]:.1f}"
         for i, (label, t) in enumerate(laps[1:])))

@@ -1,9 +1,10 @@
 """Command-line interface of the PyTorch port: ``lrcn-torch`` (or
 ``python -m lrcn_tpu_torch``), the counterpart of ``lrcn_tpu/cli.py``.
 
-The subcommands, flags, defaults and help are the JAX CLI's; the one
-difference is the top-level ``--device`` (default ``cuda``) in place of
-``--platform``.  ``--device cuda`` on a machine without a CUDA card
+The subcommands, flags, defaults and help are the JAX CLI's; the
+differences are the top-level ``--device`` (default ``cuda``) in place of
+``--platform``, and ``export --platforms``, default ``cpu,cuda`` in place
+of ``cpu,tpu``.  ``--device cuda`` on a machine without a CUDA card
 raises: no command drops to the CPU on its own.
 
     lrcn-torch train            --train (lrcn.jl:175-186)
@@ -20,6 +21,7 @@ raises: no command drops to the CPU on its own.
     lrcn-torch download         download_data.sh / karpathy_features.sh
     lrcn-torch serve            the HTTP caption service (serve/http.py, or
                                 serve/native_http.py with --native-frontend)
+    lrcn-torch export           frozen torch.export programs (export.py)
 
 Checkpoints, feature stores, candidate files and ``.jld`` files are those
 of the JAX package: each CLI reads what the other writes.  Seeds follow
@@ -29,7 +31,7 @@ come from this package's own ``torch.Generator`` streams.
 
 Not ported yet, and refused with a message naming the ``ROADMAP.md``
 item that brings them: ``--mesh``, ``--pipeline`` and the multi-host
-flags (item 7) and the ``export`` subcommand (item 6).
+flags (item 7).
 """
 
 from __future__ import annotations
@@ -408,8 +410,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("export",
                        help="freeze a checkpoint into self-contained "
-                            "decode programs (not ported yet: ROADMAP.md "
-                            "queue 1 item 6)")
+                            "decode programs (torch.export; deployable "
+                            "without this package's model code)")
     p.add_argument("--loadfile", required=True)
     p.add_argument("--out", required=True, help="export directory")
     p.add_argument("--variants", default="beam",
@@ -428,8 +430,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=None,
                    help="pin the batch dimension (default: symbolic — "
                         "one artifact serves any batch size)")
-    p.add_argument("--platforms", default="cpu,tpu",
-                   help="comma list of lowering platforms")
+    p.add_argument("--platforms", default="cpu,cuda",
+                   help="comma list of platforms the artifacts run on "
+                        "(cpu, cuda: one file per variant, moved to the "
+                        "device at load)")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     return parser
@@ -444,7 +448,6 @@ _NOT_PORTED = {
     "--num-processes": (7, "multi-host runs"),
     "--process-id": (7, "multi-host runs"),
     "serve --mesh": (7, "serving over a device mesh"),
-    "export": (6, "frozen export"),
 }
 
 
@@ -1057,6 +1060,40 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    from lrcn_tpu_torch.export import (DEFAULT_PLATFORMS, VARIANTS,
+                                       save_exported)
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    variants = tuple(v.strip() for v in args.variants.split(",") if v.strip())
+    unknown = set(variants) - set(VARIANTS)
+    if unknown:
+        raise SystemExit(f"lrcn-torch export: unknown variants "
+                         f"{sorted(unknown)}")
+    platforms = tuple(p.strip() for p in args.platforms.split(",")
+                      if p.strip())
+    if set(platforms) - set(DEFAULT_PLATFORMS):
+        raise SystemExit(f"lrcn-torch export: --platforms {args.platforms}:"
+                         f" the artifacts run on {','.join(DEFAULT_PLATFORMS)}"
+                         f" (tpu is the JAX package's `lrcn export`)")
+    device, dtype = _device(args), _compute_dtype(args)
+    ckpt = load_checkpoint(args.loadfile, device, dtype, opt_state=False)
+    vgg = avg = None
+    if "image" in variants:
+        vgg, avg = _encoder(args, ckpt, device, dtype)
+        if vgg is None:
+            raise SystemExit("lrcn-torch export: the image variant needs an "
+                             "encoder — pass --cnn or a joint --loadfile")
+    manifest = save_exported(
+        args.out, ckpt["decoder"], ckpt["vocab"], variants=variants,
+        beam_width=args.beam_width, max_words=args.max_words,
+        sample_n=args.sample_n, temperature=args.temperature,
+        batch=args.batch, platforms=platforms, vgg=vgg, average_image=avg)
+    print(f"exported {sorted(manifest['variants'])} for "
+          f"{manifest['platforms']} to {args.out}")
+    return 0
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     handlers = {
@@ -1071,7 +1108,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         "export-jld": cmd_export_jld,
         "download": cmd_download,
         "serve": cmd_serve,
-        "export": lambda _args: _refuse("export"),
+        "export": cmd_export,
     }
     return handlers[args.command](args)
 

@@ -1,7 +1,10 @@
 """Deterministic vocabulary with reserved EOS/BOS/UNK tokens.
 
 A copy of ``lrcn_tpu.core.vocab`` (same ids, same ``vocab.json`` format),
-kept here so that this package loads nothing of ``lrcn_tpu``.
+kept here so that this package loads nothing of ``lrcn_tpu``, and of the
+JAX package's detokenizers (``lrcn_tpu/decode/writer.py``:
+``caption_to_line``, ``detokenize_batch``), which the exported programs'
+consumer path needs without the decode package.
 
 Reference semantics: tokenizer.jl:147-166 (`filtervocab`) reserves
 ``~~``=eos, `` `` ``=bos, ``##``=unk as the first three ids and drops words
@@ -98,9 +101,9 @@ class Vocab:
     def words_array(self):
         """All words as a cached numpy object array (id order).
 
-        Backs vectorized detokenization (decode/writer.py
-        ``detokenize_batch``): a fancy-index gather over this array
-        replaces the per-token Python ``word()`` loop.  Safe to cache —
+        Backs vectorized detokenization (``detokenize_batch``): a
+        fancy-index gather over this array replaces the per-token Python
+        ``word()`` loop.  Safe to cache —
         the vocab is immutable after construction.
         """
         arr = getattr(self, "_words_arr", None)
@@ -128,3 +131,34 @@ class Vocab:
     def load(cls, path: str) -> "Vocab":
         with open(path) as f:
             return cls.from_json(f.read())
+
+
+def caption_to_line(token_row, vocab: Vocab) -> str:
+    """Token ids (BOS at [0]) -> the reference's caption line format.
+
+    Reference: print each word followed by a space, stop at EOS, then
+    print "." (lrcn.jl:634-640) — i.e. ``"w1 w2 ... wn ."``.
+    """
+    words = []
+    for t in token_row[1:]:
+        if int(t) == EOS_ID:
+            break
+        words.append(vocab.word(int(t)))
+    return " ".join(words + ["."])
+
+
+def detokenize_batch(tokens, vocab: Vocab) -> list[str]:
+    """Vectorized ``caption_to_line`` over (N, T) token rows: a numpy EOS
+    scan and an object-array gather leave one join per caption in
+    Python."""
+    import numpy as np
+
+    toks = np.asarray(tokens)[:, 1:]            # drop BOS
+    if toks.size == 0:
+        return ["."] * len(toks)
+    eos = toks == EOS_ID
+    has = eos.any(axis=1)
+    ends = np.where(has, eos.argmax(axis=1), toks.shape[1])
+    words = vocab.words_array()[toks]           # (N, T-1) object gather
+    return [" ".join(list(words[i, :e]) + ["."])
+            for i, e in enumerate(ends)]

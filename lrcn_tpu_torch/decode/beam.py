@@ -56,7 +56,8 @@ def beam_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
                 beam_width: int = 3, max_words: int = 30,
                 use_kernels: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Beam search over a batch of fc7 rows.
+    """Beam search over a batch of fc7 rows (:func:`beam_search_fn` under
+    ``torch.inference_mode``).
 
     Args:
       decoder: the decoder, on the device of ``feats``.
@@ -73,6 +74,16 @@ def beam_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
       scores: (B,) float32 cumulative log-probability of the best
         hypothesis.
     """
+    return beam_search_fn(decoder, feats, beam_width=beam_width,
+                          max_words=max_words, use_kernels=use_kernels)
+
+
+def beam_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                   beam_width: int = 3, max_words: int = 30,
+                   use_kernels: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The search of :func:`beam_search` with no grad mode of its own: the
+    function ``torch.export`` traces (``export.py``)."""
     b_dim, k = feats.shape[0], beam_width
     device = feats.device
     topk = topk_logsumexp if use_kernels else topk_logsumexp_reference
@@ -130,7 +141,15 @@ def greedy_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
                   max_words: int = 30) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched greedy (argmax) decoding: beam search with K=1 semantics,
     through the top-k kernel at k=1.  Same return contract as
-    :func:`beam_search`."""
+    :func:`beam_search`; :func:`greedy_search_fn` under
+    ``torch.inference_mode``."""
+    return greedy_search_fn(decoder, feats, max_words=max_words)
+
+
+def greedy_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                     max_words: int = 30
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The search of :func:`greedy_search` with no grad mode of its own."""
     b_dim = feats.shape[0]
     device = feats.device
 

@@ -36,11 +36,16 @@ from lrcn_tpu_torch.models import lrcn
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder, LSTMState
 
 
-def gumbel_noise(shape: tuple[int, ...], generator: torch.Generator
+def gumbel_noise(shape: tuple[int, ...],
+                 generator: torch.Generator | None, device=None
                  ) -> torch.Tensor:
     """Standard Gumbel noise ``-log(-log(u))``, u uniform in [tiny, 1), on
-    the generator's device (``jax.random.gumbel``'s formula)."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    the generator's device (``jax.random.gumbel``'s formula).  With no
+    generator, u is drawn from ``device``'s default generator."""
+    if generator is None:       # no generator argument: traceable
+        u = torch.rand(shape, device=device)
+    else:
+        u = torch.rand(shape, generator=generator, device=generator.device)
     return -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
 
 
@@ -65,10 +70,27 @@ def sample_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
     Returns (tokens (B, max_words+2) int64 with BOS at column 0, scores
     (B,) float32 untempered cumulative log-probabilities).
     """
-    b_dim = feats.shape[0]
-    device = feats.device
     if gumbel is None and generator is None:
         raise ValueError("sampling needs a generator or gumbel noise")
+    return sample_search_fn(decoder, feats, temperature=temperature,
+                            max_words=max_words, generator=generator,
+                            gumbel=gumbel, use_kernels=use_kernels)
+
+
+def sample_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                     temperature: float = 1.0, max_words: int = 30,
+                     generator: torch.Generator | None = None,
+                     gumbel: torch.Tensor | None = None,
+                     use_kernels: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The search of :func:`sample_search` with no grad mode of its own:
+    the function ``torch.export`` traces (``export.py``).  With neither
+    ``generator`` nor ``gumbel``, the noise comes from the default
+    generator of the device of ``feats``, so that the traced program draws
+    it: seeding that generator with s gives the stream of
+    ``torch.Generator(device).manual_seed(s)``."""
+    b_dim = feats.shape[0]
+    device = feats.device
 
     cnn_proj = lrcn.cnn_projection(decoder, feats)
     tokens = torch.full((b_dim, max_words + 2), EOS_ID, dtype=torch.int64,
@@ -81,7 +103,7 @@ def sample_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
         new_state, logits = lrcn.decode_step(decoder, state, tokens[:, step],
                                              cnn_proj, use_kernels)
         noise = (gumbel[step] if gumbel is not None
-                 else gumbel_noise(tuple(logits.shape), generator))
+                 else gumbel_noise(tuple(logits.shape), generator, device))
         word = torch.argmax(logits / temperature + noise, dim=-1)
         step_score = (logits.gather(1, word[:, None])[:, 0]
                       - torch.logsumexp(logits, dim=-1))
@@ -107,13 +129,36 @@ def best_of_n_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
     model-preferred sample per image: (tokens (B, max_words+2), scores
     (B,)).
     """
-    b_dim = feats.shape[0]
     tokens, scores = sample_search(
         decoder, feats.repeat_interleave(n_samples, dim=0),
         temperature=temperature, max_words=max_words, generator=generator,
         gumbel=gumbel, use_kernels=use_kernels)
-    tokens = tokens.view(b_dim, n_samples, -1)
-    scores = scores.view(b_dim, n_samples)
+    return _keep_best(tokens, scores, n_samples)
+
+
+def best_of_n_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
+                        n_samples: int = 100, temperature: float = 2.0,
+                        max_words: int = 30,
+                        generator: torch.Generator | None = None,
+                        gumbel: torch.Tensor | None = None,
+                        use_kernels: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`best_of_n_search` with no grad mode of its own, over
+    :func:`sample_search_fn` (the default generator where neither
+    ``generator`` nor ``gumbel`` is given): the function ``torch.export``
+    traces."""
+    tokens, scores = sample_search_fn(
+        decoder, feats.repeat_interleave(n_samples, dim=0),
+        temperature=temperature, max_words=max_words, generator=generator,
+        gumbel=gumbel, use_kernels=use_kernels)
+    return _keep_best(tokens, scores, n_samples)
+
+
+def _keep_best(tokens: torch.Tensor, scores: torch.Tensor, n_samples: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each image's first highest-scoring of its ``n_samples`` rows."""
+    tokens = tokens.view(-1, n_samples, tokens.shape[-1])
+    scores = scores.view(-1, n_samples)
     best = torch.argmax(scores, dim=1)
-    rows = torch.arange(b_dim, device=feats.device)
+    rows = torch.arange(scores.shape[0], device=scores.device)
     return tokens[rows, best], scores[rows, best]

@@ -1,10 +1,12 @@
 """Caption generation driver (counterpart of ``lrcn_tpu/decode/writer.py``).
 
-``caption_to_line``, ``detokenize_batch`` and the eval-file helpers
-(``write_candidate_files``, ``pick_eval_ids``,
+The eval-file helpers (``write_candidate_files``, ``pick_eval_ids``,
 ``pick_eval_ids_from_captions``) are copies of the JAX package's: they are
-numpy-only, but their module imports JAX.  Each caption line is the
-generated words joined by spaces with a trailing `` .`` (lrcn.jl:634-640).
+numpy-only, but their module imports JAX.  ``caption_to_line`` and
+``detokenize_batch``, copies too, live in ``core/vocab.py`` (the exported
+programs' consumer path loads nothing of ``decode``) and are re-exported
+here.  Each caption line is the generated words joined by spaces with a
+trailing `` .`` (lrcn.jl:634-640).
 
 ``generate_captions`` decodes beam (or greedy, ``beam_width=1``) captions
 in groups of ``scan_depth`` batches of ``batch_size`` rows, each group one
@@ -21,42 +23,17 @@ import numpy as np
 import torch
 
 from lrcn_tpu_torch import as_device
-from lrcn_tpu_torch.core.vocab import EOS_ID, Vocab
+from lrcn_tpu_torch.core.vocab import (  # noqa: F401
+    Vocab,
+    caption_to_line,
+    detokenize_batch,
+)
 from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
 from lrcn_tpu_torch.decode.beam import rows_search, search
 from lrcn_tpu_torch.decode.sample import best_of_n_search
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
 
 MAX_INFLIGHT = 4   # searches queued ahead of the oldest fetch
-
-
-def caption_to_line(token_row: np.ndarray, vocab: Vocab) -> str:
-    """Token ids (BOS at [0]) -> the reference's caption line format.
-
-    Reference: print each word followed by a space, stop at EOS, then
-    print "." (lrcn.jl:634-640) — i.e. ``"w1 w2 ... wn ."``.
-    """
-    words = []
-    for t in token_row[1:]:
-        if int(t) == EOS_ID:
-            break
-        words.append(vocab.word(int(t)))
-    return " ".join(words + ["."])
-
-
-def detokenize_batch(tokens: np.ndarray, vocab: Vocab) -> list[str]:
-    """Vectorized ``caption_to_line`` over (N, T) token rows: a numpy EOS
-    scan and an object-array gather leave one join per caption in
-    Python."""
-    toks = np.asarray(tokens)[:, 1:]            # drop BOS
-    if toks.size == 0:
-        return ["."] * len(toks)
-    eos = toks == EOS_ID
-    has = eos.any(axis=1)
-    ends = np.where(has, eos.argmax(axis=1), toks.shape[1])
-    words = vocab.words_array()[toks]           # (N, T-1) object gather
-    return [" ".join(list(words[i, :e]) + ["."])
-            for i, e in enumerate(ends)]
 
 
 def generate_captions(decoder: LRCNDecoder, vocab: Vocab,

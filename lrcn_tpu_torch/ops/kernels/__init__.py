@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels for sm_90a, one wrapper module each, plus the
-``nvcc`` build (``build.py``).  Every wrapper keeps its plain PyTorch
-version beside it and counts its launches in ``<wrapper>.launches``."""
+``nvcc`` build (``build.py``).  Each kernel is a ``torch.library`` op
+(``lrcn::lstm_step``, ``lrcn::topk_lse``, ``lrcn::conv3x3_relu``), which
+importing this package registers; every wrapper calls its op, keeps its
+plain PyTorch version beside it and counts its launches in
+``<wrapper>.launches``."""
 
 from lrcn_tpu_torch.ops.kernels.conv3x3 import (  # noqa: F401
     conv3x3_relu_reference,

@@ -1,4 +1,5 @@
-"""Build the package's CUDA kernels with ``nvcc`` and bind them with ctypes.
+"""Build the package's CUDA kernels with ``nvcc``, bind them with ctypes and
+register each as a ``torch.library`` op.
 
 Every ``csrc/*.cu`` file (with the shared ``csrc/*.cuh`` headers)
 compiles, at first use, into one shared library with a plain C interface
@@ -8,6 +9,14 @@ carries a hash of the sources and the flags, so an edited kernel rebuilds
 and an unchanged one loads from the cache.
 ``nvcc``'s report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``<name>.log``.
+
+Each kernel is the op ``lrcn::<name>`` (``define_op``): a CPU
+implementation (the plain version), a CUDA implementation (the launch
+through the library) and a fake one (shapes and dtypes only, for
+``torch.export`` and the ``meta`` device).  The ops are registered in
+Python on the dispatcher's lower-level ``torch.library.Library``, not
+through ``torch.library.custom_op``, whose Python wrapper costs more host
+time a launch.
 
 Importing this module needs neither ``nvcc`` nor a GPU: the CPU tests
 import every module of the package.
@@ -49,6 +58,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+NAMESPACE = "lrcn"
+_ops = torch.library.Library(NAMESPACE, "FRAGMENT")
 
 
 def sources() -> list[Path]:
@@ -152,3 +164,14 @@ def check(status: int, name: str) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def define_op(schema: str, *, cpu, cuda, fake) -> torch._ops.OpOverload:
+    """Define the op ``lrcn::<schema>`` with its CPU, CUDA and fake
+    implementations; return its overload, which the wrapper calls."""
+    name = schema.split("(", 1)[0]
+    _ops.define(schema)
+    _ops.impl(name, cpu, "CPU")
+    _ops.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_ops)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default

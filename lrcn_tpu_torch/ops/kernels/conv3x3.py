@@ -16,9 +16,15 @@ A CUDA tensor takes one of three hand-written routes of the kernel,
 chosen by ``conv3x3_route`` from the shapes, dtype and alignment:
 ``"wgmma"`` (bf16 with C and F multiples of 64: TMA loads, wgmma; 12 of
 VGG-16's 13 convs), ``"scalar"`` (other bf16 shapes: a gather into wmma
-tiles; conv1_1 has C = 3) and ``"fma"`` (f32).  The wrapper counts
-launches in ``fused_conv3x3_relu.launches`` and, per route, in
-``fused_conv3x3_relu.launches_by_route``.
+tiles; conv1_1 has C = 3) and ``"fma"`` (f32).
+
+The kernel is the ``torch.library`` op ``lrcn::conv3x3_relu``: its CPU
+implementation is the plain version, its CUDA implementation
+(``conv3x3_relu_cuda``) casts x to the compute dtype, picks the route,
+launches and counts the launch in ``fused_conv3x3_relu.launches`` and, per
+route, in ``fused_conv3x3_relu.launches_by_route``; its fake
+implementation gives the shape, so ``torch.export`` traces the op as one
+node.
 """
 
 from __future__ import annotations
@@ -93,22 +99,17 @@ def conv3x3_route(x: torch.Tensor, w: torch.Tensor) -> str:
     return "scalar"
 
 
-def fused_conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                       apply_relu: bool = True) -> torch.Tensor:
-    """``relu(conv3x3(x, w) + b)`` as one kernel launch, NHWC / HWIO.
-
-    Args:
-      x: (B, H, W, C) input; cast to the dtype of ``w`` if it is not
-        already (the first layer's input is the f32 normalized image).
-      w: (3, 3, C, F) filters, bf16 or f32 (the compute dtype).
-      b: (F,) f32 bias.
-
-    Returns (B, H, W, F) in the compute dtype.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.
-    """
+def _conv3x3_relu_cpu(x, w, b, apply_relu=True):
     _check(x, w, b)
-    if x.device.type == "cpu":
-        return conv3x3_relu_reference(x, w, b, w.dtype, apply_relu)
+    return conv3x3_relu_reference(x, w, b, w.dtype, apply_relu)
+
+
+def conv3x3_relu_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      apply_relu: bool = True) -> torch.Tensor:
+    """The op's CUDA implementation: check the operands, cast x to the
+    compute dtype, pick the route, launch the kernel on the current stream
+    and count the launch."""
+    _check(x, w, b)
     device = require_cuda(x.device)
     x = x.to(w.dtype).contiguous()
     b_dim, h, w_dim, c = x.shape
@@ -127,6 +128,34 @@ def fused_conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         fused_conv3x3_relu.launches += 1
         fused_conv3x3_relu.launches_by_route[route] += 1
     return y
+
+
+def _conv3x3_relu_fake(x, w, b, apply_relu=True):
+    _check(x, w, b)
+    return x.new_empty((*x.shape[:3], w.shape[-1]), dtype=w.dtype)
+
+
+_OP = build.define_op(
+    "conv3x3_relu(Tensor x, Tensor w, Tensor b, bool apply_relu=True)"
+    " -> Tensor",
+    cpu=_conv3x3_relu_cpu, cuda=conv3x3_relu_cuda, fake=_conv3x3_relu_fake)
+
+
+def fused_conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       apply_relu: bool = True) -> torch.Tensor:
+    """``relu(conv3x3(x, w) + b)`` as one kernel launch, NHWC / HWIO,
+    through ``lrcn::conv3x3_relu``.
+
+    Args:
+      x: (B, H, W, C) input; cast to the dtype of ``w`` if it is not
+        already (the first layer's input is the f32 normalized image).
+      w: (3, 3, C, F) filters, bf16 or f32 (the compute dtype).
+      b: (F,) f32 bias.
+
+    Returns (B, H, W, F) in the compute dtype.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise.
+    """
+    return _OP(x, w, b, apply_relu)
 
 
 fused_conv3x3_relu.launches = 0

@@ -13,9 +13,16 @@ A CUDA tensor takes one of three hand-written routes of the kernel,
 chosen by ``lstm_step_route`` from the shapes, dtype and alignment:
 ``"wgmma"`` (bf16 with X and H multiples of 4 and 16-byte aligned
 tensors: TMA loads, wgmma, the cell update in the epilogue; the decode
-step's shapes), ``"wmma"`` (other bf16 shapes) and ``"fma"`` (f32).  The
-wrapper counts launches in ``fused_lstm_step.launches`` and, per route,
-in ``fused_lstm_step.launches_by_route``.
+step's shapes), ``"wmma"`` (other bf16 shapes) and ``"fma"`` (f32).
+
+The kernel is the ``torch.library`` op ``lrcn::lstm_step``: its CPU
+implementation is the plain version, its CUDA implementation
+(``lstm_step_cuda``) checks the operands, picks the route, launches and
+counts the launch in ``fused_lstm_step.launches`` and, per route, in
+``fused_lstm_step.launches_by_route``; its fake implementation gives the
+shapes, so ``torch.export`` traces the op as one node.  The wrapper
+``fused_lstm_step`` calls the op, so the live path and an exported
+program run the same op.
 """
 
 from __future__ import annotations
@@ -80,22 +87,19 @@ def lstm_step_route(w: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     return "wmma"
 
 
-def fused_lstm_step(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
-                    c: torch.Tensor, x: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One LSTM step as one kernel launch; returns (h', c') in float32.
 
-    Args:
-      w: (X+H, 4H) packed weights, gate order [f, i, o, g], bf16 or f32
-        (the compute dtype).
-      b: (4H,) f32 bias.  h, c: (B, H) f32 state.  x: (B, X) f32 input.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.
-    """
+def _lstm_step_cpu(w, b, h, c, x):
     _check(w, b, h, c, x)
-    if x.device.type == "cpu":
-        return lstm_step_reference(w, b, h, c, x)
+    return tuple(t.contiguous() for t in lstm_step_reference(w, b, h, c, x))
+
+
+def lstm_step_cuda(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
+                   c: torch.Tensor, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: check the operands, pick the route,
+    launch the kernel on the current stream and count the launch."""
+    _check(w, b, h, c, x)
     device = require_cuda(x.device)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
@@ -111,6 +115,34 @@ def fused_lstm_step(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
         fused_lstm_step.launches += 1
         fused_lstm_step.launches_by_route[route] += 1
     return h_out, c_out
+
+
+def _lstm_step_fake(w, b, h, c, x):
+    _check(w, b, h, c, x)
+    return torch.empty_like(h), torch.empty_like(c)
+
+
+_OP = build.define_op(
+    "lstm_step(Tensor w, Tensor b, Tensor h, Tensor c, Tensor x)"
+    " -> (Tensor, Tensor)",
+    cpu=_lstm_step_cpu, cuda=lstm_step_cuda, fake=_lstm_step_fake)
+
+
+def fused_lstm_step(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
+                    c: torch.Tensor, x: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step as one kernel launch, through ``lrcn::lstm_step``;
+    returns (h', c') in float32.
+
+    Args:
+      w: (X+H, 4H) packed weights, gate order [f, i, o, g], bf16 or f32
+        (the compute dtype).
+      b: (4H,) f32 bias.  h, c: (B, H) f32 state.  x: (B, X) f32 input.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  Under ``torch.export`` the op is traced as one node.
+    """
+    return _OP(w, b, h, c, x)
 
 
 fused_lstm_step.launches = 0

@@ -14,9 +14,16 @@ chosen by ``topk_lse_route`` from k: ``"block"`` (one block per row, a
 register list of the k best; k <= 16, every beam width the service
 runs), ``"rounds"`` (k block-wide argmax rounds over the row; any k) and
 ``"warp"`` (v1, one warp per row; k <= 8), which the route function does
-not pick and a caller may ask for by name.  The wrapper counts launches in
-``topk_logsumexp.launches`` and, per route, in
-``topk_logsumexp.launches_by_route``.
+not pick and a caller may ask for by name.
+
+The kernel is the ``torch.library`` op ``lrcn::topk_lse(logits, k,
+route=None)``, the route an argument of the op: its CPU implementation
+is the plain version, its CUDA implementation (``topk_lse_cuda``)
+launches the kernel on the route asked for (by default
+``topk_lse_route``'s) and counts the launch in ``topk_logsumexp.launches``
+and, per route, in ``topk_logsumexp.launches_by_route``; its fake
+implementation gives the shapes, so ``torch.export`` traces the op as one
+node.
 """
 
 from __future__ import annotations
@@ -57,18 +64,10 @@ def topk_lse_route(logits: torch.Tensor, k: int) -> str:
     return "block" if k <= MAX_K["block"] else "rounds"
 
 
-def topk_logsumexp(logits: torch.Tensor, k: int, *, route: str | None = None
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(R, V) f32 logits -> (vals (R, k) f32 desc, idx (R, k) int32,
-    lse (R,) f32), for any 1 <= k <= V.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    ``route`` (default ``topk_lse_route``) or raise.  Rows are expected
-    finite or -inf (NaN and +inf are out of contract).
-    """
+def _check(logits: torch.Tensor, k: int, route: str | None) -> None:
     if logits.dim() != 2:
         raise ValueError(f"logits must be (R, V), got {tuple(logits.shape)}")
-    r, v = logits.shape
+    v = logits.shape[1]
     if not 1 <= k <= v:
         raise ValueError(f"k={k} must be in 1..{v} (V={v})")
     if route is not None and route not in ROUTES:
@@ -80,8 +79,20 @@ def topk_logsumexp(logits: torch.Tensor, k: int, *, route: str | None = None
         raise TypeError(f"logits must be float32, got {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("logits must be contiguous")
-    if logits.device.type == "cpu":
-        return topk_logsumexp_reference(logits, k)
+
+
+def _topk_lse_cpu(logits, k, route=None):
+    _check(logits, k, route)
+    return topk_logsumexp_reference(logits, k)
+
+
+def topk_lse_cuda(logits: torch.Tensor, k: int, route: str | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: check the operands, launch the kernel
+    on ``route`` (default ``topk_lse_route``) on the current stream and
+    count the launch."""
+    _check(logits, k, route)
+    r, v = logits.shape
     route = topk_lse_route(logits, k) if route is None else route
     device = require_cuda(logits.device)
     vals = torch.empty((r, k), dtype=torch.float32, device=device)
@@ -97,6 +108,32 @@ def topk_logsumexp(logits: torch.Tensor, k: int, *, route: str | None = None
         topk_logsumexp.launches += 1
         topk_logsumexp.launches_by_route[route] += 1
     return vals, idx, lse
+
+
+def _topk_lse_fake(logits, k, route=None):
+    _check(logits, k, route)
+    r = logits.shape[0]
+    return (logits.new_empty((r, k)),
+            logits.new_empty((r, k), dtype=torch.int32),
+            logits.new_empty((r,)))
+
+
+_OP = build.define_op(
+    "topk_lse(Tensor logits, int k, str? route=None)"
+    " -> (Tensor, Tensor, Tensor)",
+    cpu=_topk_lse_cpu, cuda=topk_lse_cuda, fake=_topk_lse_fake)
+
+
+def topk_logsumexp(logits: torch.Tensor, k: int, *, route: str | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(R, V) f32 logits -> (vals (R, k) f32 desc, idx (R, k) int32,
+    lse (R,) f32), for any 1 <= k <= V, through ``lrcn::topk_lse``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    ``route`` (default ``topk_lse_route``) or raise.  Rows are expected
+    finite or -inf (NaN and +inf are out of contract).
+    """
+    return _OP(logits, k, route)
 
 
 topk_logsumexp.launches = 0

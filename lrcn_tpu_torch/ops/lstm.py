@@ -19,6 +19,10 @@ derivative, so where a gradient is wanted the bf16 CUDA route goes through
 with bf16 operands (the cotangent rounded to bf16) and returns bf16
 gradients; the ``.to(compute_dtype)`` casts carry them back to the
 operands' own dtypes, as JAX's ``astype`` transposes do.
+
+Under ``torch.export`` the bf16 route is the op ``lrcn::mm_f32``, whose
+CPU and CUDA implementations are the two routes: an exported program runs
+on either device (``export.py``).
 """
 
 from __future__ import annotations
@@ -43,18 +47,45 @@ class _MatmulF32Out(torch.autograd.Function):
         return grad_a, grad_w
 
 
+def _mm_f32_cpu(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return a.float() @ w.float()
+
+
+def _mm_f32_cuda(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.mm(a, w, out_dtype=torch.float32)
+
+
+# ``lrcn::mm_f32(a, w)``: the bf16 route of ``matmul`` as one op with a
+# route per device, which a program traced by ``torch.export`` records in
+# place of the traced device's own route, so that it runs on either
+# device with that device's numerics (``aten::mm.dtype`` has no CPU
+# kernel).  The live path calls the routes directly.
+_ops = torch.library.Library("lrcn", "FRAGMENT")
+_ops.define("mm_f32(Tensor a, Tensor w) -> Tensor")
+_ops.impl("mm_f32", _mm_f32_cpu, "CPU")
+_ops.impl("mm_f32", _mm_f32_cuda, "CUDA")
+torch.library.register_fake(
+    "lrcn::mm_f32", lambda a, w: a.new_empty((a.shape[0], w.shape[1]),
+                                             dtype=torch.float32), lib=_ops)
+
+
 def matmul(a: torch.Tensor, w: torch.Tensor,
            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """``a @ w`` with operands in ``compute_dtype`` and a float32 result."""
-    a = a.to(compute_dtype)
-    w = w.to(compute_dtype)
+    # no cast where there is none to do: a traced program records every one
+    if a.dtype != compute_dtype:
+        a = a.to(compute_dtype)
+    if w.dtype != compute_dtype:
+        w = w.to(compute_dtype)
     if compute_dtype == torch.float32:
         return a @ w
+    if torch.compiler.is_exporting():
+        return torch.ops.lrcn.mm_f32.default(a, w)
     if a.is_cuda:
         if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
             return _MatmulF32Out.apply(a, w)
-        return torch.mm(a, w, out_dtype=torch.float32)
-    return a.float() @ w.float()
+        return _mm_f32_cuda(a, w)
+    return _mm_f32_cpu(a, w)
 
 
 def lstm_cell_update(gates: torch.Tensor, c: torch.Tensor

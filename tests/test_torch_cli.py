@@ -1,6 +1,7 @@
 """The port's command line (``lrcn_tpu_torch/cli.py``) against the JAX
 package's (``lrcn_tpu/cli.py``), on the CPU: the parser surface, the
 helpers, the refusals of what is not ported yet, and ``--device``.
+``export`` runs in ``test_torch_export_cli.py``.
 
 The other ``tests/test_torch_cli_*.py`` files and ``test_torch_http.py``
 run the commands of both packages on the same files; they import the
@@ -99,11 +100,18 @@ def _options(parser) -> dict:
 
 
 def test_parser_has_every_subcommand_and_flag_of_jax():
+    """Every subcommand and flag of the JAX CLI, with one difference:
+    ``export --platforms`` defaults to the port's platforms."""
     jax_sub = _subparsers(jax_cli.build_parser())
     port_sub = _subparsers(cli.build_parser())
     assert list(port_sub) == list(jax_sub)
     for name in jax_sub:
-        assert _options(port_sub[name]) == _options(jax_sub[name]), name
+        port, jax = _options(port_sub[name]), _options(jax_sub[name])
+        if name == "export":
+            p, j = port.pop("--platforms"), jax.pop("--platforms")
+            assert (p[1], j[1]) == ("cpu,cuda", "cpu,tpu")
+            assert p[:1] + p[2:] == j[:1] + j[2:]
+        assert port == jax, name
 
 
 def test_parser_differs_only_in_device():
@@ -218,16 +226,9 @@ def test_serve_refuses_what_is_not_ported(tmp_path, flags, item):
                    "--port", "0", *flags])
 
 
-def test_export_refuses(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 6"):
-        port_main(["export", "--loadfile", str(tmp_path / "none"),
-                   "--out", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
-
-
 def test_refusals_exit_nonzero_from_the_shell(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
-    for argv in (["export", "--loadfile", "x", "--out", "y"],
+    for argv in (["serve", "--loadfile", "x", "--mesh", "2"],
                  ["train", "--datafiles", "x.token", "--mesh", "1", "1"]):
         out = subprocess.run(
             [sys.executable, "-m", "lrcn_tpu_torch", "--device", "cpu",

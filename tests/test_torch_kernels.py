@@ -4,10 +4,13 @@ A CUDA tensor takes one of each kernel's hand-written routes, chosen by a
 pure function of the shapes, dtypes, alignment and k (``conv3x3_route``,
 ``lstm_step_route``, ``topk_lse_route``).  These tests hold those
 functions at the shapes the port runs, check that the route numbers agree
-with the C sources, and drive each wrapper on device tensors of the
-``meta`` device with the
-library, the device check and the stream stubbed out: every route goes to
-the C entry point, never to the plain version, and is counted once.
+with the C sources, and drive each op's CUDA implementation
+(``conv3x3_relu_cuda``, ``lstm_step_cuda``, ``topk_lse_cuda``, what the
+``lrcn::*`` op runs for a CUDA tensor) on tensors of the ``meta`` device
+with the library, the device check and the stream stubbed out: every
+route goes to the C entry point, never to the plain version, and is
+counted once.  (A ``meta`` tensor given to the wrapper itself reaches
+the op's fake implementation.)
 """
 
 import contextlib
@@ -138,9 +141,9 @@ class _FakeLib:
 
 @pytest.fixture
 def stubbed(monkeypatch):
-    """Wrappers driven on meta tensors as if they lay on a card: the
-    library, the device check and the stream are stubbed; the plain
-    versions must not be called."""
+    """CUDA implementations driven on meta tensors as if they lay on a
+    card: the library, the device check and the stream are stubbed; the
+    plain versions must not be called."""
     lib = _FakeLib()
 
     def forbidden(*args, **kwargs):
@@ -169,7 +172,8 @@ def test_conv_wrapper_launches_its_route(stubbed, monkeypatch, c, dtype,
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "launches_by_route",
                         dict.fromkeys(conv_module.ROUTES, 0))
-    y = fn(_meta(2, 8, 8, c), _meta(3, 3, c, 64, dtype=dtype), _meta(64))
+    y = conv_module.conv3x3_relu_cuda(
+        _meta(2, 8, 8, c), _meta(3, 3, c, 64, dtype=dtype), _meta(64))
     assert y.shape == (2, 8, 8, 64) and y.dtype == dtype
     (name, args), = stubbed.calls
     assert name == "lrcn_conv3x3" and args[-2] == conv_module.ROUTES[route]
@@ -188,9 +192,9 @@ def test_lstm_wrapper_launches_its_route(stubbed, monkeypatch, x_dim, dtype,
     monkeypatch.setattr(fn, "launches_by_route",
                         dict.fromkeys(lstm_module.ROUTES, 0))
     h_dim = 1000
-    h_out, c_out = fn(_meta(x_dim + h_dim, 4 * h_dim, dtype=dtype),
-                      _meta(4 * h_dim), _meta(768, h_dim), _meta(768, h_dim),
-                      _meta(768, x_dim))
+    h_out, c_out = lstm_module.lstm_step_cuda(
+        _meta(x_dim + h_dim, 4 * h_dim, dtype=dtype), _meta(4 * h_dim),
+        _meta(768, h_dim), _meta(768, h_dim), _meta(768, x_dim))
     assert h_out.shape == c_out.shape == (768, h_dim)
     (name, args), = stubbed.calls
     assert name == "lrcn_lstm_step" and args[-2] == lstm_module.ROUTES[route]
@@ -202,7 +206,7 @@ def test_lstm_wrapper_launches_its_route(stubbed, monkeypatch, x_dim, dtype,
 def test_topk_wrapper_launches_the_kernel(stubbed, monkeypatch):
     fn = topk_module.topk_logsumexp
     monkeypatch.setattr(fn, "launches", 0)
-    vals, idx, lse = fn(_meta(768, 8800), 3)
+    vals, idx, lse = topk_module.topk_lse_cuda(_meta(768, 8800), 3)
     assert vals.shape == idx.shape == (768, 3) and lse.shape == (768,)
     (name, _), = stubbed.calls
     assert name == "lrcn_topk_lse" and fn.launches == 1
@@ -218,7 +222,7 @@ def test_topk_wrapper_launches_its_route(stubbed, monkeypatch, k, asked,
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "launches_by_route",
                         dict.fromkeys(topk_module.ROUTES, 0))
-    vals, idx, lse = fn(_meta(768, 8800), k, route=asked)
+    vals, idx, lse = topk_module.topk_lse_cuda(_meta(768, 8800), k, asked)
     assert vals.shape == idx.shape == (768, k) and lse.shape == (768,)
     assert vals.dtype == lse.dtype == torch.float32
     assert idx.dtype == torch.int32
@@ -233,8 +237,12 @@ def test_topk_wrapper_launches_its_route(stubbed, monkeypatch, k, asked,
 @pytest.mark.parametrize("k,asked", [(9, "warp"), (17, "block"),
                                      (3, "tiles")])
 def test_topk_wrapper_refuses_a_route_that_cannot_take_k(stubbed, k, asked):
+    """Refused by the wrapper (its op's fake implementation on meta) and
+    by the CUDA implementation, before any launch."""
     with pytest.raises(ValueError):
         topk_module.topk_logsumexp(_meta(768, 8800), k, route=asked)
+    with pytest.raises(ValueError):
+        topk_module.topk_lse_cuda(_meta(768, 8800), k, asked)
     assert stubbed.calls == []
 
 

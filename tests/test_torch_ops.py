@@ -138,8 +138,9 @@ def test_topk_logsumexp_rejects_unsupported_k():
 
 
 def test_device_tensors_never_take_the_plain_version(monkeypatch):
-    """Only CPU tensors take the plain versions: any other tensor goes to
-    the kernel path, which raises unless it is on an sm_90 CUDA card."""
+    """Only CPU tensors take the plain versions: a CUDA tensor goes to the
+    op's CUDA implementation, which raises unless it is on an sm_90 card,
+    and a ``meta`` tensor to its fake implementation (shapes only)."""
     def forbidden(*args, **kwargs):
         raise AssertionError("plain version called for a CUDA tensor")
 
@@ -150,13 +151,17 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
             require_cuda("cuda")
     with pytest.raises(RuntimeError):
         require_cuda("cpu")
-    # non-CPU tensors that need no card: the wrappers must raise for them
     meta = lambda *s: torch.empty(s, device="meta")
+    lstm_args = (meta(8, 16).bfloat16(), meta(16), meta(2, 4), meta(2, 4),
+                 meta(2, 4))
+    # the CUDA implementations must raise for a tensor off the card
     with pytest.raises(RuntimeError):
-        lstm_step_module.fused_lstm_step(
-            meta(8, 16).bfloat16(), meta(16), meta(2, 4), meta(2, 4),
-            meta(2, 4))
+        lstm_step_module.lstm_step_cuda(*lstm_args)
     with pytest.raises(RuntimeError):
-        topk_module.topk_logsumexp(meta(2, 5), 2)
+        topk_module.topk_lse_cuda(meta(2, 5), 2)
+    h, c = lstm_step_module.fused_lstm_step(*lstm_args)
+    vals, idx, lse = topk_module.topk_logsumexp(meta(2, 5), 2)
+    assert h.device.type == c.device.type == vals.device.type == "meta"
+    assert idx.shape == (2, 2) and idx.dtype == torch.int32
     assert lstm_step_module.fused_lstm_step.launches == 0
     assert topk_module.topk_logsumexp.launches == 0

@@ -128,17 +128,21 @@ def test_conv_validates_shapes():
 
 
 def test_conv_device_tensors_never_take_the_plain_version(monkeypatch):
-    """Only CPU tensors take the plain version: a non-CPU tensor goes to
-    the kernel path, which raises unless it is on an sm_90 CUDA card."""
+    """Only CPU tensors take the plain version: a CUDA tensor goes to the
+    op's CUDA implementation, which raises unless it is on an sm_90 card,
+    and a ``meta`` tensor to its fake implementation (shapes only)."""
     def forbidden(*args, **kwargs):
         raise AssertionError("plain version called for a non-CPU tensor")
 
     monkeypatch.setattr(conv_module, "conv3x3_relu_reference", forbidden)
     meta = lambda *s: torch.empty(s, device="meta")
+    args = (meta(1, 8, 8, 4), meta(3, 3, 4, 8).bfloat16(), meta(8))
     before = conv_module.fused_conv3x3_relu.launches
     with pytest.raises(RuntimeError):
-        conv_module.fused_conv3x3_relu(meta(1, 8, 8, 4),
-                                       meta(3, 3, 4, 8).bfloat16(), meta(8))
+        conv_module.conv3x3_relu_cuda(*args)
+    y = conv_module.fused_conv3x3_relu(*args)
+    assert y.device.type == "meta" and y.shape == (1, 8, 8, 8)
+    assert y.dtype == torch.bfloat16
     assert conv_module.fused_conv3x3_relu.launches == before
 
 
