@@ -6,6 +6,7 @@
                                        # extraction, a training and a
                                        # joint dispatch (torch.profiler)
     python3 chip_smoke.py --export     # instead: phases 1, 2 and 15 alone
+    python3 chip_smoke.py --mesh       # instead: phases 1, 2 and 16 alone
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
@@ -139,7 +140,24 @@ exits nonzero:
    against the live path's on the same inputs (bf16: >= 99% equal, each
    differing one held by its score; sample: equal tokens under one seed;
    f32: >= 99% equal tokens), and the beam artifact's captions/s against
-   the live path's at 1x256 and 16x256.
+   the live path's at 1x256 and 16x256;
+16. multi-device on the one card: ``CaptionService(mesh=)`` over a mesh
+   that lists the card twice (phase 5's store and phase 8's joint
+   checkpoint, decode batch 256: 384 LSTM rows a shard) answering ids,
+   features and images at once, its launches 2 x (42 LSTM + 21 top-k) a
+   search and 2 x 13 conv an encoder batch at the routing functions'
+   routes; the sharded search bit-equal (tokens and scores, bf16 and f32)
+   to one-device searches of each shard's rows, and its agreement with
+   one search of all the rows printed; the f32 mesh service's captions
+   equal to the one-device service's (w_out x 8); 1- and 2-shard
+   captions/s (no scaling on one card); ``lrcn-torch serve --mesh 1`` over
+   HTTP and ``--mesh 2`` refused with JAX's message; two gloo ranks on the
+   card (``chip_smoke.py --mesh-rank``: ``ShardedTrainStep`` at (2, 1) and
+   (1, 2), ``PipelinedTrainStep`` at (1, 2), ``JointTrainStep`` at (2, 1))
+   against the one-process step, loss and every gradient; a one-rank NCCL
+   ``Trainer(mesh=make_mesh((1, 1)))`` at the reference width beside
+   phase 10's ms per step, its checkpoint restored in the one-device
+   ``Trainer``; no training step launches a kernel.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
@@ -190,8 +208,10 @@ REPORT_CONV = (56, 256, 256)    # the shape whose times the JSON line reports
 #  lstm: the same operands (bf16-rounded or f32), f32 sums over X+H = 2000
 #        terms in another order
 LSTM_ATOL = 1e-4
-#  rows that are not a multiple of the wgmma route's 128-row block
-PARTIAL_ROWS = (3, 192, 576, 1600)
+#  rows of the paths that phase 3 does not time: those that leave the
+#  wgmma route's last 128-row block part-filled, and phase 16's shard
+#  (3 x decode_batch / 2 = 384 at 2 x 128 images)
+PARTIAL_ROWS = (3, 192, 576, 1600, 384)
 #  topk: vals and idx exact; lse sums 8800 exps in another order
 LSE_ATOL = 2e-5
 # the top-k cases of phase 4 that are timed: the main path's shapes (beam
@@ -314,6 +334,33 @@ EXPORT_CPU_ROWS = 4         # rows of the bf16 directory run on the CPU
 #  its score, as phase 14 holds one: the plain path teacher-forced along it
 #  gives the search's own score within this
 EXPORT_SCORE_ATOL = 0.008
+
+# multi-device on the one card (phase 16): a mesh that lists the card
+# twice serves through two shards, each search and encoder batch split in
+# two (decode batch 256: 128 images, 384 LSTM rows a shard); training runs
+# as two gloo ranks on the card (``--mesh-rank``: NCCL refuses one GPU
+# twice) at the narrow f32 widths, against the one-process step within
+# MESH_TOL of each gradient's largest entry, and as a one-rank NCCL group
+# at the reference width (phase 10's batches)
+MESH_SHARDS = 2
+MESH_IDS = 3 * DECODE_BATCH         # two id requests: 1 and 2 groups
+MESH_FEATURES = 100
+MESH_IMAGES = 2 * ENCODE_BATCH
+MESH_F32_IDS = 2 * DECODE_BATCH
+MESH_AGREE_ROWS = 4 * DECODE_BATCH  # the sharded-search agreement sample
+MESH_BURST = 4 * DECODE_BATCH       # the timed search: a 4-group burst
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT = 300.0
+MESH_TRAIN_BATCH = 8
+MESH_PP_NARROW = dict(NARROW, embed=NARROW["hidden"][0])
+MESH_TOL = 1e-5
+#  the joint step's conv gradients: a conv weight's gradient sums the
+#  products of B x H x W positions, which cancel, and cuDNN's wgrad sums 2
+#  images a rank in another order than 4 in one process (conv2_1/w read
+#  1.77e-5 of its largest entry); the loss and the decoder's gradients
+#  are held at MESH_TOL
+MESH_CNN_TOL = 1e-4
+RESULTS: dict = {}                  # figures a later phase prints beside
 
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
@@ -536,8 +583,9 @@ def phase_lstm(tree, rng) -> dict:
               for dtype in (torch.bfloat16, torch.float32)]
     # the command line's row counts that leave the wgmma route's last
     # 128-row block part-filled (caption: 3; serve: 192 x g for g = 1, 3;
-    # --sample 100 of 16 images: 1,600), checked and not timed
-    cases += [(f"layer{n} bfloat16 {r} rows partial", tree[f"lstm{n}/w"],
+    # --sample 100 of 16 images: 1,600) and the mesh service's shard
+    # (384), checked and not timed
+    cases += [(f"layer{n} bfloat16 {r} rows untimed", tree[f"lstm{n}/w"],
                tree[f"lstm{n}/b"], r, torch.bfloat16, big)
               for r in PARTIAL_ROWS for n in (1, 2)]
     worst, times = 0.0, {}
@@ -563,7 +611,7 @@ def phase_lstm(tree, rng) -> dict:
         check(err <= LSTM_ATOL, f"lstm_step {label}: max |err| {err} > "
                                 f"{LSTM_ATOL}")
         worst = max(worst, err)
-        if label.endswith("partial"):
+        if label.endswith("untimed"):
             print(f"[3 lstm_step] {label}: rows={b_dim} X={x_dim} H={h_dim} "
                   f"route {want} max|err|={err:.3g} (tol {LSTM_ATOL})")
             del w, h, c, x, h_k, c_k, h_p, c_p
@@ -800,12 +848,12 @@ def phase_topk(rng) -> dict:
                       "plain_ms, library_ms); wall_ms by CUDA events"}
 
 
-def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str
-                   ) -> tuple[int, float, int]:
+def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str,
+                   score_atol: float = SCORE_ATOL) -> tuple[int, float, int]:
     """Hold a kernel path's f32 captions against the plain path's: at least
     CAPTION_AGREEMENT equal, and every differing one a near-tie (score gap
-    <= SCORE_ATOL).  Returns (captions equal, max score gap, distinct
-    captions)."""
+    <= ``score_atol``, SCORE_ATOL by default).  Returns (captions equal,
+    max score gap, distinct captions)."""
     from lrcn_tpu_torch.decode.writer import detokenize_batch
 
     cap_k = detokenize_batch(tok_k.cpu().numpy(), vocab)
@@ -815,7 +863,7 @@ def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str
     agree = 1 - len(differ) / len(cap_k)
     check(agree >= CAPTION_AGREEMENT,
           f"{label}: kernel vs plain captions agree on {agree:.4f} only")
-    check(all(gaps[i] <= SCORE_ATOL for i in differ),
+    check(all(gaps[i] <= score_atol for i in differ),
           f"{label}: differing captions' score gaps {gaps[differ].tolist()}")
     return len(cap_k) - len(differ), float(gaps.max()), len(set(cap_k))
 
@@ -1552,6 +1600,7 @@ def phase_train(smi: str) -> None:
           f"training at the reference width: loss {loss}")
     steps = len(timed)
     ms = dt / steps * 1e3
+    RESULTS["train_ms"] = ms
     flops = train_step_flops(TRAIN_BATCH, TRAIN_LEN + 1)
     # bytes: the f32 parameters, their gradients and Adam's two moments,
     # each read and written once a step, beside the products' operations
@@ -3475,6 +3524,512 @@ def phase_export(smi: str) -> dict[str, dict]:
             "export_image": info["counts"][f"image {EXPORT_IMAGES}"]}
 
 
+def mesh_rank(rank: int, world: int, work: str) -> None:
+    """One of phase 16's training ranks (``--mesh-rank``): join a gloo
+    group on the card (NCCL refuses a second rank on one GPU), then the
+    narrow f32 steps of ``mesh_inputs`` over meshes that list the card
+    twice: ``ShardedTrainStep`` at (2, 1) and (1, 2), ``PipelinedTrainStep``
+    at (1, 2), ``JointTrainStep`` at (2, 1).  Writes each step's loss and
+    gathered gradients, and the kernels' launch counts, to
+    ``work/rank<rank>.pkl``."""
+    import pickle
+
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.models.joint import (JointParams, JointTrainStep,
+                                             make_joint_optimizer)
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.parallel import distributed as pdist
+    from lrcn_tpu_torch.parallel import make_mesh
+    from lrcn_tpu_torch.parallel.pipeline import PipelinedTrainStep
+    from lrcn_tpu_torch.parallel.train import ShardedTrainStep
+    from lrcn_tpu_torch.train.joint import load_joint_params
+
+    pdist.initialize(f"file://{os.path.join(work, 'rendezvous')}", world,
+                     rank, backend="gloo")
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    devices = [torch.device("cuda", 0)] * world
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    reset_counts(*fns)
+    out = {}
+    t0 = time.perf_counter()
+    for name, shape in (("sharded 2x1", (2, 1)), ("sharded 1x2", (1, 2)),
+                        ("pipelined 1x2", (1, 2)), ("joint 2x1", (2, 1))):
+        kind = name.split()[0]
+        cfg_kw, tree, batch, masks = inputs[kind]
+        cfg = LRCNConfig(**cfg_kw)
+        mesh = make_mesh(shape, devices=devices)
+        masks = tuple(torch.from_numpy(m) for m in masks)
+        if kind == "joint":
+            step = JointTrainStep(
+                cfg, make_joint_optimizer(cfg), mesh=mesh,
+                average_image=np.full((224, 224, 3), JOINT_MEAN, np.float32))
+            params = load_joint_params(tree, step.device)
+            state = step.opt.init(params)
+            loss = step.value_and_grad(params, state,
+                                       *step.shard_batch(*batch),
+                                       drop_masks=masks)
+            grads = {f"{part}/{k}": p.grad.cpu().numpy()
+                     for part, ps in zip(JointParams._fields, params)
+                     for k, p in ps.items()}
+        else:
+            step = (PipelinedTrainStep if kind == "pipelined"
+                    else ShardedTrainStep)(cfg, mesh)
+            params = step.shard_params(tree)
+            opt = step.init_opt(params)
+            loss = step.value_and_grad(params, opt, *step.shard_batch(*batch),
+                                       drop_masks=masks)
+            grads = pdist.gather_to_host(
+                {k: params[k].grad for k in step.specs}, mesh, step.specs)
+        out[name] = (float(loss), grads)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = read_counts(*fns)
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    pdist.barrier("mesh_rank")
+    pdist.shutdown()
+
+
+def mesh_inputs(work: str) -> dict:
+    """The narrow f32 models, batches and GLOBAL dropout masks of phase
+    16's rank steps, written to ``work/inputs.pkl`` for the ranks:
+    ``decoder`` (phase 10's narrow width), ``pipelined`` (hidden = embed)
+    and ``joint`` (phase 12's narrow joint model)."""
+    import pickle
+
+    from lrcn_tpu_torch.config import LRCNConfig
+    from lrcn_tpu_torch.models import lrcn
+    from lrcn_tpu_torch.models.lrcn import flat_tree
+
+    rng = np.random.default_rng(SEED + 16)
+    gen = torch.Generator().manual_seed(SEED + 16)
+    b, l = MESH_TRAIN_BATCH, NARROW_LEN
+    lengths = rng.integers(1, l + 1, b).astype(np.int32)
+    lengths[-1] = -1                        # a filler row, as batches pad
+    tokens = rng.integers(3, NARROW["vocab_size"], (b, l)).astype(np.int32)
+    tokens[np.arange(l)[None, :] >= lengths[:, None]] = 0
+    feats = rng.standard_normal((b, NARROW["cnn_feature_dim"])
+                                ).astype(np.float32)
+    inputs = {}
+    for kind, dims in (("sharded", NARROW), ("pipelined", MESH_PP_NARROW)):
+        cfg = LRCNConfig(**dims, dropout=TRAIN_DROPOUT,
+                         compute_dtype="float32")
+        tree = flat_tree(lrcn.init_params(cfg, gen))
+        masks = lrcn.dropout_masks((l + 1, b, cfg.embed),
+                                   (l + 1, b, 2 * cfg.factor_dim),
+                                   TRAIN_DROPOUT, gen)
+        inputs[kind] = (dataclasses.asdict(cfg), tree,
+                        (tokens, lengths, feats),
+                        tuple(m.numpy() for m in masks))
+    cfg = LRCNConfig(**JOINT_NARROW, vocab_size=NARROW["vocab_size"],
+                     dropout=TRAIN_DROPOUT, compute_dtype="float32")
+    tree = {f"decoder/{k}": v for k, v in
+            flat_tree(lrcn.init_params(cfg, gen)).items()}
+    tree.update({f"cnn/{k}": v for k, v in flat_tree(_narrow_vgg()).items()})
+    jb = JOINT_NARROW_BATCH
+    images = rng.integers(0, 256, (jb, 224, 224, 3)).astype(np.uint8)
+    masks = lrcn.dropout_masks((l + 1, jb, cfg.embed),
+                               (l + 1, jb, 2 * cfg.factor_dim),
+                               TRAIN_DROPOUT, gen)
+    inputs["joint"] = (dataclasses.asdict(cfg), tree,
+                       (images, tokens[:jb], lengths[:jb]),
+                       tuple(m.numpy() for m in masks))
+    with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    return inputs
+
+
+def mesh_reference(inputs: dict) -> dict:
+    """The one-process f32 steps on the card for ``mesh_inputs``: the loss
+    and every gradient (the pipeline's in its stacked layout)."""
+    from lrcn_tpu_torch.parallel.pipeline import to_pipeline_params
+
+    out = {}
+    for kind in ("sharded", "pipelined"):
+        _, tree, batch, masks = inputs[kind]
+        loss, grads = narrow_step("cuda", tree, batch,
+                                  tuple(map(torch.from_numpy, masks)),
+                                  torch.float32)
+        grads = {k: g.numpy() for k, g in grads.items()}
+        if kind == "pipelined":
+            grads = to_pipeline_params(grads)
+        out[kind] = (loss, grads)
+    _, tree, batch, masks = inputs["joint"]
+    loss, grads = joint_narrow_step("cuda", tree, batch,
+                                    tuple(map(torch.from_numpy, masks)))
+    out["joint"] = (loss, {k: g.numpy() for k, g in grads.items()})
+    return out
+
+
+def phase_mesh_ranks() -> float:
+    """Two gloo ranks on the card (``chip_smoke.py --mesh-rank``) against
+    the one-process step: loss and every gradient within ``MESH_TOL`` of
+    the largest entry, and no kernel launched in any rank.  Returns the
+    seconds."""
+    import pickle
+
+    t0 = time.perf_counter()
+    work = os.path.join(WORK, "mesh_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    inputs = mesh_inputs(work)
+    env = {k: v for k, v in os.environ.items() if k != "WORLD_SIZE"}
+    procs = [subprocess.Popen([sys.executable, SCRIPT, "--mesh-rank",
+                               str(r), str(MESH_RANKS), work],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env)
+             for r in range(MESH_RANKS)]
+    try:
+        want = mesh_reference(inputs)
+        outs = [finish(p, MESH_RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (code, out, err) in enumerate(outs):
+        check(code == 0, f"mesh rank {rank} exited {code}: {err[-3000:]}")
+    ranks = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(work, f"rank{rank}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    lines = []
+    for name in ("sharded 2x1", "sharded 1x2", "pipelined 1x2",
+                 "joint 2x1"):
+        want_loss, want_grads = want[name.split()[0]]
+        worst_key, worst = None, 0.0
+        for rank, got in enumerate(ranks):
+            loss, grads = got[name]
+            loss_err = abs(loss - want_loss) / abs(want_loss)
+            check(set(grads) == set(want_grads),
+                  f"{name}: gradients {sorted(grads)}")
+            check(loss_err <= MESH_TOL, f"{name} rank {rank}: loss {loss} "
+                                        f"vs the one-process {want_loss}")
+            for k, g in want_grads.items():
+                err = float(np.abs(grads[k] - g).max()
+                            / max(np.abs(g).max(), 1e-30))
+                tol = MESH_CNN_TOL if k.startswith("cnn/") else MESH_TOL
+                check(err <= tol, f"{name} rank {rank}: gradient of {k} off "
+                                  f"by {err:.3g} of its largest entry (tol "
+                                  f"{tol})")
+                if err >= worst:
+                    worst_key, worst = k, err
+        rest = max(float(np.abs(ranks[0][name][1][k] - g).max()
+                         / max(np.abs(g).max(), 1e-30))
+                   for k, g in want_grads.items() if not k.startswith("cnn/"))
+        lines.append(f"{name}: loss {ranks[0][name][0]:.6f} (one process "
+                     f"{want_loss:.6f}), {len(want_grads)} gradients, worst "
+                     f"{worst_key} {worst:.3g}, worst outside the CNN "
+                     f"{rest:.3g}")
+    counts = [r["counts"] for r in ranks]
+    check(all(sum(c.values()) == 0 for c in counts),
+          f"the rank steps launched hand-written kernels: {counts}")
+    seconds = time.perf_counter() - t0
+    print(f"[16 mesh] {MESH_RANKS} gloo ranks on cuda:0 (NCCL refuses one "
+          f"card twice), f32, TF32 off, dropout {TRAIN_DROPOUT} with the "
+          f"global masks, against the one-process step (tol {MESH_TOL} of "
+          f"the largest entry, {MESH_CNN_TOL} for the CNN's): "
+          + "; ".join(lines) + f"; no kernel "
+          f"launched; the ranks' steps {max(r['seconds'] for r in ranks):.1f}"
+          f" s, {seconds:.1f} s in all")
+    return seconds
+
+
+def phase_mesh_nccl(smi: str) -> float:
+    """A one-rank NCCL group at the reference width: ``Trainer(mesh=
+    make_mesh((1, 1)))``, phase 10's batches, K=8, ms per step beside
+    phase 10's one-device figure; no kernel launched; rank 0's checkpoint
+    (19 global optax leaves) restores in the one-device ``Trainer``."""
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.parallel import distributed as pdist
+    from lrcn_tpu_torch.parallel import make_mesh
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+    from lrcn_tpu_torch.train.metrics import MetricsLogger
+    from lrcn_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    work = os.path.join(WORK, "mesh_nccl")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pdist.initialize(f"file://{os.path.join(work, 'rendezvous')}", 1, 0,
+                     backend="nccl")
+    try:
+        one, params1, _, batches, store = train_setup()
+        tree = {k: params1[k].detach().cpu().numpy() for k in params1}
+        trainer = Trainer(one.cfg, one.vocab,
+                          metrics=MetricsLogger(echo=False),
+                          steps_per_dispatch=TRAIN_K,
+                          mesh=make_mesh((1, 1)))
+        del one, params1
+        params, opt = trainer.restore(tree)
+        key, shuffle = 1, np.random.default_rng(SEED)
+        trainer.train_epoch(params, opt, batches[:TRAIN_K], store, key,
+                            shuffle, log_every=0)        # warm-up
+        timed = batches[TRAIN_K:]
+        fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+        reset_counts(*fns)
+        t1 = time.perf_counter()
+        trainer.train_epoch(params, opt, timed, store, key, shuffle,
+                            log_every=0)
+        ms = (time.perf_counter() - t1) / len(timed) * 1e3
+        counts = read_counts(*fns)
+        check(sum(counts.values()) == 0,
+              f"the NCCL trainer launched hand-written kernels: {counts}")
+        path = os.path.join(work, "ckpt")
+        trainer._save(path, params, opt, epoch=1)
+        ck = load_checkpoint(path, "cuda", opt_state=True)
+        check(len(ck["opt_leaves"]) == 19, f"{len(ck['opt_leaves'])} "
+                                           f"optimizer leaves")
+        back, back_opt = Trainer(trainer.cfg, trainer.vocab,
+                                 metrics=MetricsLogger(echo=False),
+                                 device="cuda").restore(ck["params"],
+                                                        ck["opt_leaves"])
+        check(all(torch.equal(back[k], params[k].detach()) for k in back)
+              and int(back_opt.state_leaves()[0]) == TRAIN_K + len(timed),
+              "the NCCL rank's checkpoint does not restore in the "
+              "one-device Trainer")
+        backend = torch.distributed.get_backend()
+    finally:
+        pdist.shutdown()
+    seconds = time.perf_counter() - t0
+    print(f"[16 mesh] one-rank {backend} group, Trainer(mesh=make_mesh((1, "
+          f"1))) at the reference width, bf16, B={TRAIN_BATCH}, "
+          f"K={TRAIN_K}: {ms:.3f} ms per step over {len(timed)} steps "
+          f"(phase 10, one device: {RESULTS.get('train_ms', float('nan')):.3f}"
+          f" ms) on {smi}; no kernel launched; rank 0's checkpoint (19 "
+          f"global optax leaves) restores in the one-device Trainer; "
+          f"{seconds:.1f} s")
+    return seconds
+
+
+def phase_mesh(smi: str, rng) -> dict[str, int]:
+    """Phase 16: multi-device on the one card.  Serving over a mesh that
+    lists the card twice (each search and encoder batch split into two
+    shards, each on its own stream; phase 5's store and phase 8's joint
+    checkpoint), f32 captions equal to the one-device service's, bf16
+    agreement, the CLI's ``serve --mesh``; then training over two gloo
+    ranks and a one-rank NCCL group.  Returns the main path's launches."""
+    import http.client
+    import threading
+
+    from lrcn_tpu_torch import cli
+    from lrcn_tpu_torch.data.feature_store import FeatureStore
+    from lrcn_tpu_torch.decode.beam import beam_search
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+    from lrcn_tpu_torch.models.vgg import CONV_NAMES
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.parallel import make_mesh
+    from lrcn_tpu_torch.parallel.decode import sharded_beam_search
+    from lrcn_tpu_torch.serve import CaptionService, make_server
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    card = torch.device("cuda", 0)
+    mesh = make_mesh((MESH_SHARDS, 1), devices=[card] * MESH_SHARDS)
+    joint = os.path.join(WORK, "joint")
+    ck = load_checkpoint(joint, "cuda")
+    cfg, vocab = ck["cfg"], ck["vocab"]
+    store = FeatureStore.load(os.path.join(WORK, "store"))
+    ids = store.ids()
+    svc = CaptionService(cfg, ck["decoder"], vocab, store=store,
+                         vgg=ck["vgg"], average_image=ck["average_image"],
+                         beam_width=BEAM, max_words=MAX_WORDS,
+                         decode_batch=DECODE_BATCH, mesh=mesh)
+    svc.warmup()
+    raw = np.abs(rng.standard_normal((MESH_FEATURES, CNN_DIM))
+                 ).astype(np.float32)
+    images = list(rng.integers(0, 256, (MESH_IMAGES, 224, 224, 3),
+                               dtype=np.uint8))
+    requests = [("ids", ids[:DECODE_BATCH]),
+                ("ids", ids[DECODE_BATCH:MESH_IDS]),
+                ("features", list(raw)), ("images", images)]
+
+    def answer(req):
+        kind, items = req
+        return {"ids": svc.caption_ids, "features": svc.caption_features,
+                "images": svc.caption_images}[kind](items)
+
+    # the main path: every count starts at 0 here
+    searches, encodes = [], []
+    reset_counts(*fns)
+    t1 = time.perf_counter()
+    with counted_searches(searches, encodes):
+        with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+            answers = list(pool.map(answer, requests))
+    serve_s = time.perf_counter() - t1
+    launches = read_counts(*fns)
+    used = {fn.__name__: _routes_used(fn) for fn in fns}
+    svc.close()
+    for (kind, items), lines in zip(requests, answers):
+        check(len(lines) == len(items) and all(
+            isinstance(x, str) and x.endswith(" .") for x in lines),
+            f"mesh service {kind}: {len(lines)} answers for {len(items)}")
+    with np.load(os.path.join(joint, "params.npz")) as z:
+        convs = [z[f"cnn/{n}/w"].shape for n in CONV_NAMES]
+    steps = MAX_WORDS + 1
+    want = {"fused_conv3x3_relu": _scaled(expected_routes(
+        cfg, convs, 1, BEAM)["fused_conv3x3_relu"], len(encodes)),
+        "fused_lstm_step": {}, "topk_logsumexp": {}}
+    for rows_k in searches:
+        per_step = expected_routes(cfg, [], rows_k, BEAM)
+        for name in ("fused_lstm_step", "topk_logsumexp"):
+            for route, n in per_step[name].items():
+                want[name][route] = want[name].get(route, 0) + n * steps
+    shard_rows = DECODE_BATCH // MESH_SHARDS * BEAM
+    check(len(searches) % MESH_SHARDS == 0
+          and min(searches) == shard_rows
+          and len(encodes) % MESH_SHARDS == 0
+          and set(encodes) == {ENCODE_BATCH // MESH_SHARDS}
+          and launches["fused_lstm_step"] == 2 * steps * len(searches)
+          and launches["topk_logsumexp"] == steps * len(searches)
+          and launches["fused_conv3x3_relu"] == 13 * len(encodes)
+          and used == want,
+          f"mesh service: launches {launches} by route {used} in "
+          f"{len(searches)} shard searches of {sorted(set(searches))} rows "
+          f"and {len(encodes)} shard encoder batches; want {want}")
+    print(f"[16 mesh] service over make_mesh(({MESH_SHARDS}, 1), "
+          f"[cuda:0] x {MESH_SHARDS}), bf16, beam {BEAM}, decode batch "
+          f"{DECODE_BATCH} ({shard_rows} LSTM rows a shard), encode batch "
+          f"{ENCODE_BATCH}: {sum(map(len, answers))} captions for "
+          f"{len(requests)} concurrent requests (ids, features, "
+          f"{MESH_IMAGES} images) in {serve_s:.3f} s; "
+          f"{len(searches) // MESH_SHARDS} searches and "
+          f"{len(encodes) // MESH_SHARDS} encoder batches, each as "
+          f"{MESH_SHARDS} shards (shard searches of "
+          f"{sorted(set(searches))} rows); launches {launches}, by route "
+          f"{used}")
+
+    # the sharded search against one-device searches, bf16 and f32: of
+    # each shard's rows (the same products: token for token, score for
+    # score), and, printed, of all the rows at once (products of other
+    # shapes round otherwise, as they do between one-device searches of
+    # one and of four groups; a flip early in a search can end in another
+    # caption of another score)
+    table = torch.from_numpy(store.table()[:MESH_AGREE_ROWS]).cuda()
+    half = MESH_AGREE_ROWS // MESH_SHARDS
+    agree = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dec = load_checkpoint(os.path.join(WORK, "ckpt"), "cuda",
+                              compute_dtype=dtype)["decoder"]
+        tok_m, sc_m = sharded_beam_search(dec, table, mesh, beam_width=BEAM,
+                                          max_words=MAX_WORDS)
+        per_shard = [beam_search(dec, table[i:i + half], beam_width=BEAM,
+                                 max_words=MAX_WORDS)
+                     for i in range(0, MESH_AGREE_ROWS, half)]
+        label = str(dtype).replace("torch.", "")
+        check(torch.equal(tok_m, torch.cat([t for t, _ in per_shard]))
+              and torch.equal(sc_m, torch.cat([c for _, c in per_shard])),
+              f"{label} mesh search: tokens or scores differ from "
+              f"one-device searches of each shard's rows")
+        tok_1, sc_1 = beam_search(dec, table, beam_width=BEAM,
+                                  max_words=MAX_WORDS)
+        cap_m = detokenize_batch(tok_m.cpu().numpy(), vocab)
+        cap_1 = detokenize_batch(tok_1.cpu().numpy(), vocab)
+        differ = [i for i, (a, b) in enumerate(zip(cap_m, cap_1)) if a != b]
+        gaps = (sc_m - sc_1).abs().cpu().numpy()
+        agree[label] = (len(cap_m) - len(differ),
+                        float(gaps[differ].max()) if differ else 0.0,
+                        float(np.median(gaps[differ])) if differ else 0.0)
+        del dec
+    print(f"[16 mesh] sharded search over {MESH_AGREE_ROWS} rows, bf16 and "
+          f"f32: tokens and scores equal to one-device searches of each "
+          f"shard's {half} rows; against one search of all "
+          f"{MESH_AGREE_ROWS}: " + ", ".join(
+              f"{k} {n}/{MESH_AGREE_ROWS} captions equal, the differing "
+              f"ones' score gaps median {m:.3g}, max {g:.3g}"
+              for k, (n, g, m) in agree.items()))
+
+    # f32: the mesh service's captions equal the one-device service's, on
+    # the checkpoint with phase 13's sharper output projection (w_out x 8:
+    # fewer tied beams; the random one's near-ties are held above)
+    dec32 = load_checkpoint(os.path.join(WORK, "ckpt"), "cuda",
+                            compute_dtype=torch.float32)["decoder"]
+    dec32.w_out.mul_(CLI_F32_SHARPEN)
+    f32 = {}
+    for name, extra in (("one", {"device": "cuda"}), ("mesh", {"mesh": mesh})):
+        s32 = CaptionService(cfg, dec32, vocab, store=store, beam_width=BEAM,
+                             max_words=MAX_WORDS, decode_batch=DECODE_BATCH,
+                             **extra)
+        f32[name] = s32.caption_ids(ids[:MESH_F32_IDS])
+        s32.close()
+    same = sum(a == b for a, b in zip(f32["one"], f32["mesh"]))
+    check(same == MESH_F32_IDS, f"f32 mesh service: {same}/{MESH_F32_IDS} "
+                                f"captions equal to the one-device service")
+    del dec32
+
+    # captions/s of one and two shards on the one card, for the record
+    burst = torch.from_numpy(store.table()[np.arange(MESH_BURST)
+                                           % len(store)]).cuda()
+    dec16 = ck["decoder"]
+    rates = {}
+    for name, run in (("1 shard", lambda: beam_search(
+            dec16, burst, beam_width=BEAM, max_words=MAX_WORDS)),
+            (f"{MESH_SHARDS} shards", lambda: sharded_beam_search(
+                dec16, burst, mesh, beam_width=BEAM, max_words=MAX_WORDS))):
+        run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            tokens, _ = run()
+        tokens.cpu()
+        rates[name] = 3 * MESH_BURST / (time.perf_counter() - t1)
+    print(f"[16 mesh] f32 mesh service (w_out x {CLI_F32_SHARPEN:g}): "
+          f"{same}/{MESH_F32_IDS} id captions equal to the one-device "
+          f"service's; a {MESH_BURST}-row bf16 search on {smi}: "
+          + ", ".join(f"{k} {v:.1f} captions/s" for k, v in rates.items())
+          + " (two shards on one card measure no scaling)")
+
+    # the command line: serve --mesh 1 over HTTP; --mesh 2 is refused
+    args = cli.build_parser().parse_args([
+        *CLI_DEVICE_FLAGS, "serve", "--loadfile", os.path.join(WORK, "ckpt"),
+        "--features", os.path.join(WORK, "store"), "--generate",
+        str(MAX_WORDS), "--mesh", "1", "--host", "127.0.0.1", "--port", "0"])
+    service = cli.make_caption_service(args)
+    check(service.mesh is not None and service.mesh.shape["data"] == 1,
+          "serve --mesh 1 built no mesh service")
+    server = make_server(service, args.host, args.port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                      timeout=120)
+    try:
+        replies = [http_request(conn, "POST", "/v1/caption",
+                                {"ids": ids[i:i + 3]})
+                   for i in range(0, 12, 3)]
+        direct = [service.caption_ids(ids[i:i + 3]) for i in range(0, 12, 3)]
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        service.close()
+    check(all(status == 200 and reply["captions"] == d
+              for (status, reply), d in zip(replies, direct)),
+          f"serve --mesh 1: {replies}")
+    try:
+        cli.main([*CLI_DEVICE_FLAGS, "serve", "--loadfile",
+                  os.path.join(WORK, "ckpt"), "--features",
+                  os.path.join(WORK, "store"), "--mesh", "2"])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "needs 2 devices, have 1" in refused,
+          f"serve --mesh 2 on one card: {refused!r}")
+    print(f"[16 mesh] lrcn-torch serve --mesh 1: {len(replies)} id requests "
+          f"over HTTP equal to the service's own captions; serve --mesh 2 "
+          f"refused: {refused!r}")
+
+    rank_s = phase_mesh_ranks()
+    nccl_s = phase_mesh_nccl(smi)
+    print(f"[16 mesh] seconds: {time.perf_counter() - t0:.1f} (ranks "
+          f"{rank_s:.1f}, NCCL trainer {nccl_s:.1f})")
+    return launches
+
+
 @torch.inference_mode()
 def path_score_error(decoder, feats, tokens, scores) -> float:
     """How far each row's search score lies from the plain decode step's
@@ -3633,6 +4188,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--export-cli"]:
         export_cli(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     name, smi = phase_card()
     phase_build()
     if sys.argv[1:] == ["--profile"]:
@@ -3647,6 +4205,23 @@ def main() -> None:
             vocab_size=VOCAB, compute_dtype="bfloat16"))
         write_joint_checkpoint(os.path.join(WORK, "joint"), tree, rng)
         print(json.dumps(phase_export(smi)))
+        shutil.rmtree(WORK, ignore_errors=True)
+        return
+    if sys.argv[1:] == ["--mesh"]:
+        tree = random_tree(rng)
+        shutil.rmtree(WORK, ignore_errors=True)
+        from lrcn_tpu_torch.config import LRCNConfig
+        from lrcn_tpu_torch.data.feature_store import FeatureStore
+        write_checkpoint(os.path.join(WORK, "ckpt"), tree, LRCNConfig(
+            hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+            vocab_size=VOCAB, compute_dtype="bfloat16"))
+        raw = np.abs(rng.standard_normal((2048, CNN_DIM))).astype(np.float32)
+        store = FeatureStore(dim=CNN_DIM, normalized=True)
+        for i, row in enumerate(raw / raw.sum(axis=1, keepdims=True)):
+            store.add(1000 + i, row)
+        store.save(os.path.join(WORK, "store"))
+        write_joint_checkpoint(os.path.join(WORK, "joint"), tree, rng)
+        print(json.dumps(phase_mesh(smi, rng)))
         shutil.rmtree(WORK, ignore_errors=True)
         return
     lap("1-2")
@@ -3684,6 +4259,8 @@ def main() -> None:
     lap("14")
     by_path.update(phase_export(smi))
     lap("15")
+    by_path["mesh_serve (phase 16)"] = phase_mesh(smi, rng)
+    lap("16")
     print("[time] seconds by phase: " + ", ".join(
         f"{label} {t - laps[i][1]:.1f}"
         for i, (label, t) in enumerate(laps[1:])))

@@ -25,6 +25,9 @@ Layer map:
 - ``lrcn_tpu_torch.native``   the host C++ libraries (JPEG loader, BLEU
   core), built with g++ at first use
 - ``lrcn_tpu_torch.core``     vocabulary and caption tokenizer
+- ``lrcn_tpu_torch.parallel`` the device mesh, batch-sharded decoding,
+  data x vocabulary-parallel and pipelined training over
+  ``torch.distributed`` (one rank per mesh entry)
 
 Kernels run on CUDA tensors; on CPU tensors every kernel wrapper computes
 its plain PyTorch version, which is what the CPU tests hold against JAX.

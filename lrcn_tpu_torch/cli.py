@@ -29,9 +29,13 @@ the JAX CLI: ``--seed`` picks the same held-out ids in both packages
 (``np.random.default_rng``); parameter draws, dropout and sampling noise
 come from this package's own ``torch.Generator`` streams.
 
-Not ported yet, and refused with a message naming the ``ROADMAP.md``
-item that brings them: ``--mesh``, ``--pipeline`` and the multi-host
-flags (item 7).
+Multi-device runs: ``train --mesh DP TP`` runs one process per mesh
+entry (``--num-processes`` counts ranks, and DP x TP must equal it), each
+started with ``--coordinator HOST:PORT --num-processes N --process-id I``
+or by ``torchrun --nproc-per-node N`` (the launcher's environment);
+NCCL on the card, gloo with ``--device cpu``.  ``serve --mesh N`` splits
+every search over N data shards in one process (``--device cpu`` lists
+the CPU N times).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import NoReturn, Sequence
+from typing import Sequence
 
 import numpy as np
 
@@ -165,23 +169,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference-parity batching (deletes unbatchable "
                         "captions, lrcn.jl:299-327) instead of bucketing")
     p.add_argument("--mesh", type=int, nargs=2, metavar=("DP", "TP"),
-                   help="train over a (data, model) device mesh (not "
-                        "ported yet: ROADMAP.md queue 1 item 7)")
+                   help="train over a (data, model) device mesh: one "
+                        "process per entry, DP x TP of them")
     p.add_argument("--pipeline", action="store_true",
                    help="pipeline the 2 LSTM layers over the mesh's "
-                        "'model' axis (not ported yet: ROADMAP.md queue "
-                        "1 item 7)")
+                        "'model' axis (needs --mesh DP 2)")
     p.add_argument("--metrics", help="JSONL metrics file")
-    # --- multi-host (not ported yet: ROADMAP.md queue 1 item 7); absent,
-    #     they change nothing
+    # --- multi-process: one process per mesh entry; absent (and outside
+    #     a launcher such as torchrun), they change nothing
     p.add_argument("--coordinator", metavar="HOST:PORT",
-                   help="coordination service address (multi-host; not "
-                        "ported yet)")
+                   help="rendezvous address of rank 0 (multi-process; "
+                        "tcp://HOST:PORT)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="total process count (multi-host; not ported yet)")
+                   help="total process count: ranks, one per mesh entry "
+                        "(multi-process)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="this process's id, 0-based (multi-host; not "
-                        "ported yet)")
+                   help="this process's rank, 0-based (multi-process)")
     p.add_argument("--ckpt-every", type=int, default=None,
                    help="also checkpoint every N dispatches within an "
                         "epoch (crash-safe mid-epoch resume; the "
@@ -387,8 +390,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "burst); features go at once when nothing else "
                         "is in flight")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="shard each batch over N devices (not ported "
-                        "yet: ROADMAP.md queue 1 item 7)")
+                   help="shard each batch over N devices (one process; "
+                        "with --device cpu, N CPU shards)")
     p.add_argument("--max-queue", type=int, default=None,
                    help="shed load (HTTP 503) when a stage's queue "
                         "exceeds this depth; default unbounded")
@@ -439,37 +442,50 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# --- refusals: the parts of the JAX CLI that are not ported yet ---
-
-_NOT_PORTED = {
-    "--mesh": (7, "multi-device runs"),
-    "--pipeline": (7, "the pipelined LSTM over a mesh"),
-    "--coordinator": (7, "multi-host runs"),
-    "--num-processes": (7, "multi-host runs"),
-    "--process-id": (7, "multi-host runs"),
-    "serve --mesh": (7, "serving over a device mesh"),
-}
-
-
-def _refuse(what: str) -> NoReturn:
-    item, feature = _NOT_PORTED[what]
-    raise SystemExit(f"lrcn-torch: {what} is not ported yet ({feature}: "
-                     f"ROADMAP.md queue 1 item {item}); use the JAX "
-                     f"package's `lrcn` for it")
-
-
-def _refuse_multi_device(args) -> None:
-    """``train``: refuse every mesh and multi-host flag that was given;
-    absent ones change nothing."""
-    for flag, value in (("--mesh", args.mesh), ("--pipeline", args.pipeline),
-                        ("--coordinator", args.coordinator),
-                        ("--num-processes", args.num_processes),
-                        ("--process-id", args.process_id)):
-        if value is not None and value is not False:
-            _refuse(flag)
-
-
 # --- helpers ---
+
+
+def _start_ranks(args) -> None:
+    """``train``: join the process group when the multi-process flags (or
+    a launcher's environment) ask for one, NCCL for ``--device cuda`` and
+    gloo for ``--device cpu``; then refuse what JAX's CLI refuses."""
+    from lrcn_tpu_torch.parallel.distributed import (default_backend,
+                                                     initialize,
+                                                     process_count)
+
+    initialize(args.coordinator, args.num_processes, args.process_id,
+               backend=default_backend(args.device))
+    if args.mesh:
+        return
+    if args.joint:
+        if process_count() > 1:
+            raise SystemExit(
+                "lrcn-torch train --joint: multi-process runs need --mesh "
+                "DP TP spanning every process's devices")
+        return
+    if args.pipeline:
+        raise SystemExit("lrcn-torch train: --pipeline requires --mesh DP 2")
+    if process_count() > 1:
+        raise SystemExit(
+            "lrcn-torch train: multi-process runs need --mesh DP TP "
+            "spanning every process's devices — without it each process "
+            "would train an independent replica")
+
+
+def _mesh(args, shape, serving: bool = False):
+    """A mesh of ``shape``: for ``train`` one entry per rank (each rank's
+    card, or the CPU with ``--device cpu``), for ``serve`` this process's
+    cards (the CPU listed N times with ``--device cpu``)."""
+    import torch
+
+    from lrcn_tpu_torch.parallel import make_mesh
+    from lrcn_tpu_torch.parallel.distributed import process_count
+
+    devices = None
+    if torch.device(args.device).type == "cpu":
+        n = int(np.prod(shape)) if serving else process_count()
+        devices = [torch.device("cpu")] * n
+    return make_mesh(tuple(shape), devices=devices)
 
 
 def _device(args):
@@ -588,22 +604,36 @@ def _fresh_config(args, **extra):
 
 
 def cmd_train(args) -> int:
+    import torch.distributed as dist
+
+    from lrcn_tpu_torch.parallel.distributed import is_primary, shutdown
+
+    joined = not dist.is_initialized()
+    _start_ranks(args)
+    try:
+        return _train(args, is_primary())
+    finally:
+        if joined:       # leave a group this command joined
+            shutdown()
+
+
+def _train(args, primary: bool) -> int:
     from lrcn_tpu_torch.core.tokenizer import tokenize
     from lrcn_tpu_torch.data.batcher import (bucket_batches,
+                                             effective_batch_size,
                                              equal_length_batches)
     from lrcn_tpu_torch.data.feature_store import FeatureStore
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
     from lrcn_tpu_torch.train.metrics import MetricsLogger
     from lrcn_tpu_torch.train.trainer import Trainer
 
-    _refuse_multi_device(args)
     _autofill_datafiles(args)
     if not args.datafiles:
         raise SystemExit("lrcn-torch train: pass --datafiles (or "
                          "--flickr/--coco to use the reference's default "
                          "paths)")
     if args.joint:
-        return _train_joint(args)
+        return _train_joint(args, primary)
     if not args.features:
         raise SystemExit("lrcn-torch train: --features is required "
                          "(or pass --joint with --images)")
@@ -634,9 +664,12 @@ def cmd_train(args) -> int:
         cfg = _fresh_config(args, cnn_feature_dim=store.dim,
                             vocab_size=len(vocab))
 
-    metrics = MetricsLogger(args.metrics, echo=True)
+    mesh = _mesh(args, args.mesh) if args.mesh else None
+    # multi-process: rank 0 alone writes metrics and echoes
+    metrics = MetricsLogger(args.metrics if primary else None, echo=primary)
     trainer = Trainer(cfg, vocab, metrics, device=device,
-                      steps_per_dispatch=args.steps_per_dispatch)
+                      steps_per_dispatch=args.steps_per_dispatch, mesh=mesh,
+                      pipeline=args.pipeline)
     if ckpt is None:
         params, opt = trainer.init(max(cfg.seed, 0))
     else:
@@ -648,10 +681,22 @@ def cmd_train(args) -> int:
 
     make_batches = (equal_length_batches if args.equal_length_batches
                     else bucket_batches)
-    train_batches = make_batches(train_caps, vocab, cfg.batch_size)
+    batch_size = cfg.batch_size
+    if mesh is not None:
+        # the data axis splits the batch: round the effective batch size
+        # (after the reference's small-dataset rule, lrcn.jl:264-268) up
+        # to a multiple of the DP degree
+        dp = mesh.shape["data"]
+        batch_size = -(-effective_batch_size(
+            len(train_caps), batch_size) // dp) * dp
+        train_batches = make_batches(train_caps, vocab, batch_size,
+                                     apply_small_dataset_rule=False)
+    else:
+        train_batches = make_batches(train_caps, vocab, batch_size)
     val_batches = val_store = None
     if val_caps is not None and args.val_features:
-        val_batches = make_batches(val_caps, vocab, cfg.batch_size)
+        val_batches = make_batches(val_caps, vocab, batch_size,
+                                   apply_small_dataset_rule=mesh is None)
         val_store = FeatureStore.load(args.val_features)
 
     trainer.fit(params, opt, train_batches, val_batches, store, val_store,
@@ -663,7 +708,7 @@ def cmd_train(args) -> int:
     return 0
 
 
-def _train_joint(args) -> int:
+def _train_joint(args, primary: bool = True) -> int:
     """``lrcn-torch train --joint``: end-to-end CNN+LSTM fine-tuning (the
     paper's LRCN-2f, 1411.4389.pdf Table 6)."""
     import torch
@@ -747,12 +792,14 @@ def _train_joint(args) -> int:
         val_caps = [c for c in caption_lists[1]
                     if c.image_id in image_paths] or None
 
-    metrics = MetricsLogger(args.metrics, echo=True)
+    mesh = _mesh(args, args.mesh) if args.mesh else None
+    metrics = MetricsLogger(args.metrics if primary else None, echo=primary)
     trainer = JointTrainer(cfg, vocab, image_paths, average_image,
                            metrics=metrics, cnn_lr=args.cnn_lr,
                            freeze_cnn=args.freeze_cnn,
                            steps_per_dispatch=args.steps_per_dispatch,
-                           remat_cnn=not args.no_remat_cnn, device=device)
+                           remat_cnn=not args.no_remat_cnn, device=device,
+                           mesh=mesh)
     if ckpt is None:
         params, opt_state = trainer.init(max(cfg.seed, 0),
                                          vgg_params=vgg_params,
@@ -769,8 +816,8 @@ def _train_joint(args) -> int:
     val_batches = (bucket_batches(val_caps, vocab, cfg.batch_size)
                    if val_caps else None)
     for ckpt_dir in (args.savefile, args.bestfile):
-        if ckpt_dir:   # `caption` reads this next to a joint checkpoint
-            os.makedirs(ckpt_dir, exist_ok=True)
+        if ckpt_dir and primary:   # `caption` reads this next to a joint
+            os.makedirs(ckpt_dir, exist_ok=True)     # checkpoint
             np.save(os.path.join(ckpt_dir, "average_image.npy"),
                     average_image)
     trainer.fit(params, opt_state, train_batches, val_batches,
@@ -979,9 +1026,11 @@ def make_caption_service(args):
     from lrcn_tpu_torch.serve import CaptionService
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
 
-    if getattr(args, "mesh", None):
-        _refuse("serve --mesh")
+    mesh = (_mesh(args, (args.mesh, 1), serving=True)
+            if getattr(args, "mesh", None) else None)
     device, dtype = _device(args), _compute_dtype(args)
+    if mesh is not None:
+        device = mesh.data_devices()[0]
     ckpt = load_checkpoint(args.loadfile, device, dtype, opt_state=False)
     vgg, avg = _encoder(args, ckpt, device, dtype)
     store = FeatureStore.load(args.features) if args.features else None
@@ -997,7 +1046,7 @@ def make_caption_service(args):
         max_wait_ms=args.max_wait_ms,
         max_queue=getattr(args, "max_queue", None),
         request_timeout_s=getattr(args, "request_timeout", 60.0),
-        max_burst_groups=getattr(args, "max_burst_groups", None))
+        max_burst_groups=getattr(args, "max_burst_groups", None), mesh=mesh)
 
 
 def cmd_serve(args) -> int:

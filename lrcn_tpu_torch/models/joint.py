@@ -24,6 +24,11 @@ resumes in either package.
 ``JointTrainStep`` runs on one device (``"cuda"`` unless the caller asks
 for another); ``multi_step`` runs K steps with the step keys
 ``fold_in(base_key, offset + i)``, eagerly, with no host synchronisation.
+With a ``mesh`` (one rank per entry) it is data parallel, as in JAX: both
+parameter sets are replicated, each rank takes its rows of the global
+batch, the loss differentiated is the global mean (the local NLL sum over
+the global token count) and the gradients are summed over ``data`` before
+the clip; the dropout masks are the global batch's, sliced.
 """
 
 from __future__ import annotations
@@ -56,13 +61,17 @@ class JointParams(NamedTuple):
     decoder: LRCNParams   # the LRCN decoder (models/lrcn.py)
 
 
-def joint_loss(params: JointParams, images: torch.Tensor,
-               tokens: torch.Tensor, lengths: torch.Tensor, *,
-               pdrop: float = 0.0, generator: torch.Generator | None = None,
-               drop_masks: tuple[torch.Tensor, torch.Tensor] | None = None,
-               compute_dtype: torch.dtype = torch.bfloat16,
-               remat_cnn: bool = True) -> torch.Tensor:
-    """Mean NLL of captions given preprocessed images (B, 224, 224, 3).
+def joint_loss_total_count(params: JointParams, images: torch.Tensor,
+                           tokens: torch.Tensor, lengths: torch.Tensor, *,
+                           pdrop: float = 0.0,
+                           generator: torch.Generator | None = None,
+                           drop_masks: tuple[torch.Tensor, torch.Tensor]
+                           | None = None,
+                           compute_dtype: torch.dtype = torch.bfloat16,
+                           remat_cnn: bool = True
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Summed NLL and token count of captions given preprocessed images
+    (B, 224, 224, 3).
 
     Dropout as :func:`lrcn.loss_total_count` (``drop_masks`` injected, or
     drawn from ``generator``).  With ``remat_cnn`` the VGG forward keeps
@@ -75,9 +84,20 @@ def joint_loss(params: JointParams, images: torch.Tensor,
     else:
         feats = fwd(images)
     feats = l1_normalize(feats)       # live-path normalization, lrcn.jl:597
-    return lrcn.loss_fn(params.decoder, tokens, lengths, feats, pdrop=pdrop,
-                        generator=generator, drop_masks=drop_masks,
-                        compute_dtype=compute_dtype)
+    return lrcn.loss_total_count(params.decoder, tokens, lengths, feats,
+                                 pdrop=pdrop, generator=generator,
+                                 drop_masks=drop_masks,
+                                 compute_dtype=compute_dtype)
+
+
+def joint_loss(params: JointParams, images: torch.Tensor,
+               tokens: torch.Tensor, lengths: torch.Tensor,
+               **kwargs) -> torch.Tensor:
+    """Mean NLL of captions given preprocessed images; keyword arguments
+    as :func:`joint_loss_total_count`."""
+    total, count = joint_loss_total_count(params, images, tokens, lengths,
+                                          **kwargs)
+    return total / count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,9 +199,15 @@ class JointTrainStep:
     """
 
     def __init__(self, cfg: LRCNConfig, opt: JointOptimizer,
-                 remat_cnn: bool = True, average_image=None, device="cuda"):
+                 remat_cnn: bool = True, average_image=None, device="cuda",
+                 mesh=None):
         self.cfg = cfg
         self.opt = opt
+        self.mesh = mesh
+        if mesh is not None:
+            from lrcn_tpu_torch.parallel.train import check_training_mesh
+            check_training_mesh(mesh)
+            device = mesh.local_device()
         self.device = as_device(device)
         self.compute_dtype = compute_dtype_of(cfg)
         self.remat_cnn = remat_cnn
@@ -194,17 +220,43 @@ class JointTrainStep:
         return images.float() - self._avg
 
     def _grad_step(self, params: JointParams, opt_state: JointOptState,
-                   images, tokens, lengths, key: int) -> torch.Tensor:
+                   images, tokens, lengths, key: int,
+                   drop_masks=None) -> torch.Tensor:
         """One optimizer step; returns the batch's loss on the device."""
+        loss = self.value_and_grad(params, opt_state, images, tokens,
+                                   lengths, key, drop_masks)
+        opt_state.step()
+        return loss
+
+    def value_and_grad(self, params: JointParams, opt_state: JointOptState,
+                       images, tokens, lengths, key: int = 0,
+                       drop_masks=None) -> torch.Tensor:
+        """The batch's (global) mean loss, with its gradient in the
+        ``.grad`` of ``opt_state.grad_params()`` (summed over ``data``
+        under a mesh); no update.  ``drop_masks``: the global batch's
+        dropout masks, injected in the place of the step generator's."""
         pdrop = self.cfg.dropout
         opt_state.zero_grad()
-        loss = joint_loss(
+        generator = (step_generator(key, self.device)
+                     if pdrop > 0 and drop_masks is None else None)
+        if self.mesh is not None and pdrop > 0:
+            from lrcn_tpu_torch.parallel.train import global_drop_masks
+            drop_masks = global_drop_masks(
+                self.cfg, tokens.shape[1] + 1, tokens.shape[0], self.mesh,
+                generator, drop_masks, self.device)
+        total, count = joint_loss_total_count(
             params, self._preprocess(images), tokens, lengths, pdrop=pdrop,
-            generator=(step_generator(key, self.device) if pdrop > 0
-                       else None),
+            generator=generator, drop_masks=drop_masks,
             compute_dtype=self.compute_dtype, remat_cnn=self.remat_cnn)
+        if self.mesh is not None:
+            from lrcn_tpu_torch.parallel.train import (sum_grads,
+                                                       sum_over_data)
+            count = sum_over_data(count, self.mesh)
+            (total / count).backward(inputs=opt_state.grad_params())
+            sum_grads(opt_state.grad_params(), self.mesh.group("data"))
+            return sum_over_data(total, self.mesh) / count
+        loss = total / count
         loss.backward(inputs=opt_state.grad_params())
-        opt_state.step()
         return loss.detach()
 
     def __call__(self, params, opt_state, images, tokens, lengths, key: int
@@ -232,8 +284,14 @@ class JointTrainStep:
         device."""
         feats = l1_normalize(vgg16_fc7_train(
             params.cnn, self._preprocess(images), self.compute_dtype))
-        return lrcn.loss_total_count(params.decoder, tokens, lengths, feats,
-                                     compute_dtype=self.compute_dtype)
+        total, count = lrcn.loss_total_count(
+            params.decoder, tokens, lengths, feats,
+            compute_dtype=self.compute_dtype)
+        if self.mesh is not None:
+            from lrcn_tpu_torch.parallel.train import sum_over_data
+            return (sum_over_data(total, self.mesh),
+                    sum_over_data(count, self.mesh))
+        return total, count
 
     def init(self, generator: torch.Generator | int, vgg_params=None
              ) -> tuple[JointParams, JointOptState]:
@@ -266,13 +324,33 @@ class JointTrainStep:
             images = images.astype(np.float32)
         return images
 
-    def shard_batch(self, images, tokens, lengths):
-        """Raw image pixels (uint8 preferred) + tokens -> device tensors;
-        uint8 stays uint8."""
+    def put_local(self, images, tokens, lengths):
+        """This rank's raw image pixels (uint8 preferred) + tokens ->
+        device tensors; uint8 stays uint8."""
         return (self._put(self._as_image_array(images)),
                 self._put(np.asarray(tokens, np.int32)),
                 self._put(np.asarray(lengths, np.int32)))
 
+    def local_rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n`` rows (all of them
+        without a mesh)."""
+        if self.mesh is None:
+            return slice(0, n)
+        from lrcn_tpu_torch.parallel.train import data_rows
+        return data_rows(self.mesh, n)
+
+    def shard_batch(self, images, tokens, lengths):
+        """A global batch of raw image pixels + tokens -> this rank's rows
+        as device tensors (every row without a mesh)."""
+        rows = self.local_rows(len(tokens))
+        return self.put_local(np.asarray(images)[rows],
+                              np.asarray(tokens)[rows],
+                              np.asarray(lengths)[rows])
+
     def shard_chunk(self, images_k, tokens_k, lengths_k):
-        """K stacked batches for ``multi_step`` (leading step axis)."""
-        return self.shard_batch(images_k, tokens_k, lengths_k)
+        """K stacked global batches for ``multi_step`` (leading step
+        axis) -> this rank's rows of each."""
+        rows = self.local_rows(np.shape(tokens_k)[1])
+        return self.put_local(np.asarray(images_k)[:, rows],
+                              np.asarray(tokens_k)[:, rows],
+                              np.asarray(lengths_k)[:, rows])

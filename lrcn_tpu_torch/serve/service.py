@@ -31,7 +31,13 @@ As in the JAX service, ``max_queue`` bounds each batcher's queue (a
 request beyond it raises ``BatcherOverloaded``, HTTP 503 in
 ``serve/http.py``) and ``max_burst_groups`` sets ``MAX_DECODE_GROUPS``.
 
-Not ported yet: the device mesh.
+With a ``mesh`` (``parallel/mesh.py``) the decoder, the feature table and
+the encoder are replicated once per distinct device of the mesh's data
+shards, and every search and encoder batch splits into equal contiguous
+slices, one per shard, each run on its shard's device and CUDA stream
+(``parallel/decode.py``); each shard's result is copied to the host
+behind its own work.  ``decode_batch`` (and ``encode_batch`` with an
+encoder) must split over the data axis, as in JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from lrcn_tpu_torch.decode.writer import detokenize_batch
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
 from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7
 from lrcn_tpu_torch.models.vgg import l1_normalize as l1_normalize_device
+from lrcn_tpu_torch.parallel.decode import DataShards
 from lrcn_tpu_torch.serve.batcher import DynamicBatcher
 from lrcn_tpu_torch.train.joint import identity_average_image
 
@@ -69,7 +76,7 @@ class CaptionService:
     MAX_DECODE_GROUPS = 4   # batches per burst search
 
     def __init__(self, cfg: LRCNConfig, decoder: LRCNDecoder, vocab: Vocab,
-                 *, device, store: FeatureStore | None = None,
+                 *, device=None, store: FeatureStore | None = None,
                  vgg: VGGEncoder | None = None,
                  average_image: np.ndarray | None = None,
                  beam_width: int = 3, max_words: int = 30,
@@ -77,10 +84,24 @@ class CaptionService:
                  max_wait_ms: float = 5.0,
                  request_timeout_s: float = 60.0,
                  max_queue: int | None = None,
-                 max_burst_groups: int | None = None):
-        self.device = as_device(device)
+                 max_burst_groups: int | None = None, mesh=None):
+        self.mesh = mesh
+        self._shards = None
+        if mesh is not None:
+            n_data = mesh.shape["data"]
+            if decode_batch % n_data or (
+                    vgg is not None and encode_batch % n_data):
+                raise ValueError(
+                    f"decode_batch={decode_batch} / encode_batch="
+                    f"{encode_batch} must be divisible by the mesh's "
+                    f"data axis ({n_data}) so every chip gets equal "
+                    f"batch rows")
+            self._shards = DataShards(mesh)
+            device = self._shards.devices[0]
+        self.device = as_device("cuda" if device is None else device)
         for name, model in (("decoder", decoder), ("vgg", vgg)):
-            if model is not None and model.device != self.device:
+            if (model is not None and mesh is None
+                    and model.device != self.device):
                 raise ValueError(f"{name} is on {model.device}, service "
                                  f"device is {self.device}")
         self.cfg = cfg
@@ -116,12 +137,16 @@ class CaptionService:
                 table = l1_normalize(table)
             self._table = torch.from_numpy(table).to(
                 decoder.compute_dtype).to(self.device)
+            if self._shards is not None:
+                self._tables = self._shards.replicate(self._table)
             self._rows_batcher = DynamicBatcher(
                 self._decode_rows_grouped, finalize=self._decode_finalize,
                 max_batch=max_batch, max_wait_ms=max_wait_ms,
                 name="decode_ids", max_queue=max_queue)
         self.vgg = vgg
         self._encode = self._average_image = None
+        if self._shards is not None:
+            self._decoders = self._shards.replicate(decoder)
         if vgg is not None:
             if vgg.feature_dim != cfg.cnn_feature_dim:
                 raise ValueError(f"encoder gives {vgg.feature_dim} features,"
@@ -129,6 +154,9 @@ class CaptionService:
             avg = (identity_average_image() if average_image is None
                    else np.asarray(average_image, np.float32))
             self._average_image = torch.from_numpy(avg).to(self.device)
+            if self._shards is not None:
+                self._vggs = self._shards.replicate(vgg)
+                self._averages = self._shards.replicate(self._average_image)
             self._encode = DynamicBatcher(
                 self._encode_fn, finalize=self._encode_finalize,
                 max_batch=encode_batch, max_wait_ms=max_wait_ms,
@@ -143,20 +171,22 @@ class CaptionService:
                              f"batches of {self.decode_batch}")
         return groups * self.decode_batch
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """``array`` on the service's device, without waiting for it.
+    def _upload(self, array: np.ndarray, device=None) -> torch.Tensor:
+        """``array`` on ``device`` (the service's by default), without
+        waiting for it.
 
         A copy from pageable memory synchronizes the stream, which every
         thread shares, so an upload would wait out the searches already
         in flight.  Staged in pinned memory, the copy queues behind them
         instead; the caching host allocator hands the pinned block out
         again only after its copy has run."""
-        host = torch.from_numpy(array)
-        if self.device.type != "cuda":
+        device = self.device if device is None else device
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if device.type != "cuda":
             return host
         staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
         staged.copy_(host)
-        return staged.to(self.device, non_blocking=True)
+        return staged.to(device, non_blocking=True)
 
     @torch.inference_mode()
     def _fetch(self, n: int, result: torch.Tensor):
@@ -173,12 +203,22 @@ class CaptionService:
         done.record(torch.cuda.current_stream(self.device))
         return n, host, done
 
+    def _run_shards(self, n: int, fn, batch: np.ndarray):
+        """Under a mesh: ``fn(i, rows)`` on each data shard's device and
+        stream for its equal contiguous slice of ``batch``, each result's
+        host copy queued behind it; returns ``(n, host tensor, events)``
+        at once, like ``_fetch``."""
+        parts = [batch[rows] for rows in self._shards.split(len(batch))]
+        host, events = self._shards.to_host(self._shards.run(fn, parts))
+        return n, host, events
+
     @staticmethod
     def _wait(raw) -> np.ndarray:
         """The first ``n`` rows of a fetched result, once its copy ran."""
         n, host, done = raw
-        if done is not None:
-            done.synchronize()
+        for event in (done if isinstance(done, list) else [done]):
+            if event is not None:
+                event.synchronize()
         return host[:n].numpy()
 
     def _decode_feats_grouped(self, rows: Sequence[np.ndarray],
@@ -197,6 +237,11 @@ class CaptionService:
         batch = np.zeros((self._padded_rows(n), self.cfg.cnn_feature_dim),
                          np.float32)
         batch[:n] = rows
+        if self._shards is not None:
+            return self._run_shards(n, lambda i, part: search(
+                self._decoders[i], self._upload(part, self._shards.devices[i]),
+                beam_width=self.beam_width, max_words=self.max_words
+            )[0].to(torch.int32), batch)
         tokens, _ = search(self.decoder, self._upload(batch),
                            beam_width=self.beam_width,
                            max_words=self.max_words)
@@ -208,6 +253,12 @@ class CaptionService:
         n = len(rows)
         idx = np.zeros((self._padded_rows(n),), np.int64)
         idx[:n] = rows
+        if self._shards is not None:
+            return self._run_shards(n, lambda i, part: rows_search(
+                self._decoders[i], self._tables[i],
+                self._upload(part, self._shards.devices[i]),
+                beam_width=self.beam_width, max_words=self.max_words
+            )[0].to(torch.int32), idx)
         tokens, _ = rows_search(self.decoder, self._table, self._upload(idx),
                                 beam_width=self.beam_width,
                                 max_words=self.max_words)
@@ -223,6 +274,11 @@ class CaptionService:
         n = len(images)
         batch = np.zeros((self._encode.max_batch, CROP, CROP, 3), np.uint8)
         batch[:n] = np.asarray(images, np.uint8)
+        if self._shards is not None:
+            return self._run_shards(n, lambda i, part: l1_normalize_device(
+                vgg16_fc7(self._vggs[i], normalize_batch(
+                    self._upload(part, self._shards.devices[i]),
+                    self._averages[i]))), batch)
         pixels = normalize_batch(self._upload(batch), self._average_image)
         return self._fetch(n, l1_normalize_device(vgg16_fc7(self.vgg,
                                                             pixels)))

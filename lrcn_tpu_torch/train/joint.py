@@ -22,6 +22,11 @@ package's semantics:
 
 A joint checkpoint's mean image lives in ``average_image.npy``, which
 ``save_checkpoint`` keeps when it rewrites a checkpoint.
+
+With a ``mesh`` (one rank per entry) the step is data parallel
+(``models/joint.py``): each rank decodes and feeds only its rows of every
+batch, the shuffle seed is ``shared_seed``'s, and rank 0 alone writes the
+checkpoints (both parameter sets are replicated).
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ class JointTrainer:
                  metrics: MetricsLogger | None = None,
                  cnn_lr: float | None = None, freeze_cnn: bool = False,
                  steps_per_dispatch: int = 1, prefetch_depth: int = 2,
-                 remat_cnn: bool = True, device="cuda"):
+                 remat_cnn: bool = True, device="cuda", mesh=None):
         self.cfg = cfg
         self.vocab = vocab
         self.image_paths = image_paths
@@ -65,9 +70,11 @@ class JointTrainer:
         self.metrics = metrics or MetricsLogger()
         self.opt = make_joint_optimizer(cfg, cnn_lr=cnn_lr,
                                         freeze_cnn=freeze_cnn)
+        self.mesh = mesh
         self.step = JointTrainStep(cfg, self.opt, remat_cnn=remat_cnn,
                                    average_image=self.average_image,
-                                   device=device)
+                                   device=device, mesh=mesh)
+        self._data_size = 1 if mesh is None else mesh.shape["data"]
         self.device = self.step.device
         self.steps_per_dispatch = max(1, steps_per_dispatch)
         self.prefetch_depth = max(1, prefetch_depth)
@@ -107,11 +114,26 @@ class JointTrainer:
         return load_images(
             [self.image_paths[int(i)] for i in batch.image_ids])
 
+    def _local(self, batch: Batch) -> Batch:
+        """This rank's rows of a batch (the batch itself without a mesh):
+        each rank decodes only the images it feeds."""
+        if self.mesh is None:
+            return batch
+        rows = self.step.local_rows(batch.batch_size)
+        return Batch(batch.image_ids[rows], batch.tokens[rows],
+                     batch.lengths[rows])
+
+    def _load_local(self, batch: Batch) -> tuple:
+        """Host arrays of this rank's rows of a batch: (B, 224, 224, 3) u8,
+        tokens and lengths."""
+        local = self._local(batch)
+        return self._load_images(local), local.tokens, local.lengths
+
     def _load_chunk(self, chunk: list[Batch]) -> tuple:
-        """Host arrays for K stacked batches: (K,B,224,224,3) u8 + tokens."""
-        return (np.stack([self._load_images(b) for b in chunk]),
-                np.stack([b.tokens for b in chunk]),
-                np.stack([b.lengths for b in chunk]))
+        """Host arrays for this rank's rows of K stacked batches:
+        (K,B,224,224,3) u8 + tokens."""
+        parts = [self._load_local(b) for b in chunk]
+        return tuple(np.stack(p) for p in zip(*parts))
 
     def _prefetched(self, items: list, load, transform):
         """Decode up to ``prefetch_depth`` items ahead of the device."""
@@ -160,14 +182,14 @@ class JointTrainer:
             offset = sum(len(c) for c in chunks[:skip])
             feed = self._prefetched(
                 chunks[skip:], self._load_chunk,
-                lambda host: self.step.shard_chunk(*host))
+                lambda host: self.step.put_local(*host))
             for ci, (images_k, tokens_k, lengths_k) in enumerate(feed):
                 params, opt_state, losses = self.step.multi_step(
                     params, opt_state, images_k, tokens_k, lengths_k,
                     rng_key, offset)
                 k = images_k.shape[0]
                 offset += k
-                seen += k * images_k.shape[1]
+                seen += k * images_k.shape[1] * self._data_size
                 gi = skip + ci
                 if log_every and (gi * k) % log_every < k:
                     self.metrics.log(event="joint_train", batch=gi * k,
@@ -178,16 +200,13 @@ class JointTrainer:
             single = tail   # per-shape remainders, already shuffled
         skip_single = max(0, start_dispatch - n_chunks)
         single_base = rng_key
-        feed = self._prefetched(
-            single[skip_single:], self._load_images,
-            lambda imgs: imgs)   # shard with the batch below
-        for i, (batch, images) in enumerate(zip(single[skip_single:],
-                                                feed)):
+        feed = self._prefetched(single[skip_single:], self._load_local,
+                                lambda host: self.step.put_local(*host))
+        for i, dev in enumerate(feed):
             j = skip_single + i
-            dev = self.step.shard_batch(images, batch.tokens, batch.lengths)
             params, opt_state, loss = self.step(
                 params, opt_state, *dev, fold_in(single_base, j))
-            seen += dev[0].shape[0]
+            seen += dev[0].shape[0] * self._data_size
             if log_every and j % log_every == 0:
                 self.metrics.log(event="joint_train", batch=j,
                                  loss=round(float(loss), 4),
@@ -207,12 +226,11 @@ class JointTrainer:
         until it has run, so an unbounded queue would hold a whole
         validation split whenever host decode outpaces the device."""
         total, count = 0.0, 0.0
-        order = list(batches)
-        feed = self._prefetched(order, self._load_images, lambda x: x)
+        feed = self._prefetched(list(batches), self._load_local,
+                                lambda host: self.step.put_local(*host))
         partials: deque = deque()
         max_inflight = 2 * self.prefetch_depth
-        for batch, images in zip(order, feed):
-            dev = self.step.shard_batch(images, batch.tokens, batch.lengths)
+        for dev in feed:
             partials.append(self.step.eval_batch(params, *dev))
             while len(partials) > max_inflight:
                 t, c = partials.popleft()
@@ -222,6 +240,16 @@ class JointTrainer:
             total += float(t)
             count += float(c)
         return total / max(count, 1.0)
+
+    def _save(self, path: str, params, opt_state, **kwargs) -> None:
+        """``save_checkpoint``; under a mesh rank 0 alone writes (both
+        parameter sets and the optimizer are replicated) and every rank
+        returns after the write."""
+        from lrcn_tpu_torch.parallel.distributed import barrier, is_primary
+        if is_primary():
+            save_checkpoint(path, params, self.vocab, self.cfg,
+                            opt_state=opt_state, **kwargs)
+        barrier("lrcn_ckpt_save")
 
     def fit(self, params: JointParams, opt_state: JointOptState,
             train_batches: Sequence[Batch],
@@ -233,9 +261,11 @@ class JointTrainer:
         """Epoch loop; ``ckpt_every``/``resume_position`` give the same
         crash-safe mid-epoch checkpointing as the decoder trainer, and on
         any resume ``epochs`` is the total budget."""
+        from lrcn_tpu_torch.parallel.distributed import shared_seed
+
         epochs = epochs if epochs is not None else self.cfg.epochs
         shuffle_rng = np.random.default_rng(
-            self.cfg.seed if self.cfg.seed > 0 else None)
+            shared_seed(self.cfg.seed if self.cfg.seed > 0 else None))
         best_val = float("inf")
         geometry = {"steps_per_dispatch": self.steps_per_dispatch,
                     "n_batches": len(train_batches)}
@@ -256,9 +286,8 @@ class JointTrainer:
 
             def on_ckpt(dispatch, p, o, _epoch=epoch, _state=epoch_state,
                         _key=epoch_key):
-                save_checkpoint(
-                    savefile, p, self.vocab, self.cfg, opt_state=o,
-                    epoch=_epoch - 1,
+                self._save(
+                    savefile, p, o, epoch=_epoch - 1,
                     position=make_position(_epoch, dispatch, _state, _key,
                                            geometry))
                 self.metrics.log(event="ckpt", epoch=_epoch,
@@ -270,16 +299,14 @@ class JointTrainer:
                 ckpt_every=ckpt_every if savefile else None,
                 on_checkpoint=on_ckpt if savefile else None)
             if savefile:
-                save_checkpoint(savefile, params, self.vocab, self.cfg,
-                                opt_state=opt_state, epoch=epoch)
+                self._save(savefile, params, opt_state, epoch=epoch)
             record = {"event": "epoch", "epoch": epoch}
             if val_batches is not None:
                 val_loss = self.average_loss(params, val_batches)
                 record["val_loss"] = round(val_loss, 4)
                 if bestfile and val_loss < best_val:
                     best_val = val_loss
-                    save_checkpoint(bestfile, params, self.vocab, self.cfg,
-                                    opt_state=opt_state, epoch=epoch)
+                    self._save(bestfile, params, opt_state, epoch=epoch)
                     record["best"] = True
             self.metrics.log(**record)
         return params, opt_state

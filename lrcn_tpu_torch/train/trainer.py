@@ -30,12 +30,21 @@ checkpoints:
   it does not reproduce ``jax.random``'s bits);
 - per-epoch and every-``ckpt_every``-dispatch checkpoints, ``bestfile``,
   train/val average loss and words/s, logged as JSONL.
+
+With a ``mesh`` (``parallel/mesh.py``, one rank per entry) the steps run
+through ``parallel.ShardedTrainStep`` (data x vocabulary parallel), or
+``parallel.PipelinedTrainStep`` with ``pipeline=True``, which runs one
+step a dispatch as in JAX.  Every rank holds the feature table and takes
+its rows of every stacked batch; the shuffle seed is ``shared_seed``'s;
+checkpoints gather the parameters and the optimizer's moments to their
+global shapes on every rank, and rank 0 alone writes them.
 """
 
 from __future__ import annotations
 
 import copy
 import time
+import warnings
 import weakref
 from typing import Sequence
 
@@ -176,12 +185,29 @@ class Trainer:
 
     def __init__(self, cfg: LRCNConfig, vocab: Vocab,
                  metrics: MetricsLogger | None = None, device="cuda",
-                 steps_per_dispatch: int = 1):
+                 steps_per_dispatch: int = 1, mesh=None,
+                 pipeline: bool = False):
         self.cfg = cfg
         self.vocab = vocab
         self.metrics = metrics or MetricsLogger()
-        self.device = as_device(device)
         self.compute_dtype = compute_dtype_of(cfg)
+        self.mesh = mesh
+        self.pipeline = pipeline and mesh is not None
+        self._sharded = None
+        if self.pipeline:
+            from lrcn_tpu_torch.parallel.pipeline import PipelinedTrainStep
+            if steps_per_dispatch > 1:
+                warnings.warn(
+                    "steps_per_dispatch > 1 is not supported with pipeline "
+                    "parallelism; running 1 step per dispatch",
+                    stacklevel=2)
+                steps_per_dispatch = 1
+            self._sharded = PipelinedTrainStep(cfg, mesh)
+        elif mesh is not None:
+            from lrcn_tpu_torch.parallel.train import ShardedTrainStep
+            self._sharded = ShardedTrainStep(cfg, mesh)
+        self.device = (as_device(device) if self._sharded is None
+                       else self._sharded.device)
         self.steps_per_dispatch = max(1, steps_per_dispatch)
         self._table_cache = None   # (weakref to store, device table)
 
@@ -193,15 +219,24 @@ class Trainer:
         ``generator`` or a seed) on the device, and a fresh optimizer."""
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
-        params = lrcn.init_params(self.cfg, generator).to(self.device)
+        params = lrcn.init_params(self.cfg, generator)
+        if self._sharded is not None:
+            params = self._sharded.shard_params(params)
+            return params, self._sharded.init_opt(params)
+        params = params.to(self.device)
         return params, Optimizer(params, self.cfg)
 
     def restore(self, tree, opt_leaves=None
                 ) -> tuple[LRCNParams, Optimizer]:
         """Parameters from a numpy tree (a checkpoint's ``params``) and an
-        optimizer with the checkpoint's ``opt_leaves``, if any."""
-        params = LRCNParams.from_numpy(tree, self.device)
-        opt = Optimizer(params, self.cfg)
+        optimizer with the checkpoint's ``opt_leaves``, if any (global
+        leaves; under a mesh each rank keeps its slices)."""
+        if self._sharded is not None:
+            params = self._sharded.shard_params(tree)
+            opt = self._sharded.init_opt(params)
+        else:
+            params = LRCNParams.from_numpy(tree, self.device)
+            opt = Optimizer(params, self.cfg)
         if opt_leaves is not None:
             opt.load_leaves(opt_leaves)
         return params, opt
@@ -211,6 +246,9 @@ class Trainer:
     def _step(self, params: LRCNParams, opt: Optimizer, tokens, lengths,
               feats, key: int) -> torch.Tensor:
         """One optimizer step; returns the batch's loss on the device."""
+        if self._sharded is not None:
+            return self._sharded.step(params, opt, tokens, lengths, feats,
+                                      key).detach()
         pdrop = self.cfg.dropout
         opt.zero_grad()
         loss = lrcn.loss_fn(
@@ -243,13 +281,35 @@ class Trainer:
             self.device, non_blocking=True) for a in arrays)
 
     def _stacked(self, chunk: Sequence[Batch], store: FeatureStore):
-        """A chunk's host lengths, and its stacked tokens, lengths and
-        table rows on the device."""
+        """A chunk's host lengths (the global batches'), and its stacked
+        tokens, lengths and table rows on the device (under a mesh, this
+        rank's rows of each batch)."""
         tokens_k = np.stack([b.tokens for b in chunk])
         lengths_k = np.stack([b.lengths for b in chunk])
         rows_k = np.stack([store.rows(b.image_ids) for b in chunk]
                           ).astype(np.int64)
-        return lengths_k, self._put(tokens_k, lengths_k, rows_k)
+        if self.mesh is None:
+            return lengths_k, self._put(tokens_k, lengths_k, rows_k)
+        from lrcn_tpu_torch.parallel.train import data_rows
+        mine = data_rows(self.mesh, tokens_k.shape[1])
+        return lengths_k, self._put(tokens_k[:, mine], lengths_k[:, mine],
+                                    rows_k[:, mine])
+
+    def _save(self, path: str, params, opt, **kwargs) -> None:
+        """``save_checkpoint`` of the full parameters and optimizer state.
+        Under a mesh every rank gathers them (collective) and rank 0
+        alone writes; every rank returns after the write."""
+        if self._sharded is None:
+            save_checkpoint(path, params, self.vocab, self.cfg,
+                            opt_state=opt, **kwargs)
+            return
+        from lrcn_tpu_torch.parallel.distributed import barrier, is_primary
+        tree = self._sharded.unshard_params(params)
+        leaves = opt.state_leaves()
+        if is_primary():
+            save_checkpoint(path, tree, self.vocab, self.cfg,
+                            opt_state=leaves, **kwargs)
+        barrier("lrcn_ckpt_save")
 
     def _device_table(self, store: FeatureStore) -> torch.Tensor:
         """The store's feature table on the device, cached by a weak
@@ -332,6 +392,14 @@ class Trainer:
                          words_per_sec=words_per_sec())
         return params, opt, rng_key
 
+    def _eval(self, params, tokens, lengths, feats):
+        """(NLL sum, token count) of one batch, over the mesh's global
+        batch under a mesh."""
+        if self._sharded is not None:
+            return self._sharded.eval_batch(params, tokens, lengths, feats)
+        return lrcn.loss_total_count(params, tokens, lengths, feats,
+                                     compute_dtype=self.compute_dtype)
+
     @torch.no_grad()
     def average_loss(self, params: LRCNParams, batches: Sequence[Batch],
                      store: FeatureStore) -> float:
@@ -351,9 +419,8 @@ class Trainer:
             _, (tokens_k, lengths_k, rows_k) = self._stacked(chunk, store)
             part = torch.zeros(2, device=self.device)
             for i in range(len(chunk)):
-                part = part + torch.stack(lrcn.loss_total_count(
-                    params, tokens_k[i], lengths_k[i], table[rows_k[i]],
-                    compute_dtype=self.compute_dtype))
+                part = part + torch.stack(self._eval(
+                    params, tokens_k[i], lengths_k[i], table[rows_k[i]]))
             partials.append(part)
         total, count = 0.0, 0.0
         for t, c in (p.tolist() for p in partials):
@@ -382,9 +449,13 @@ class Trainer:
         epoch, an epoch-complete checkpoint passes its ``epoch`` as
         ``completed_epochs``.
         """
+        from lrcn_tpu_torch.parallel.distributed import shared_seed
+
         epochs = epochs if epochs is not None else self.cfg.epochs
+        # multi-process: unseeded runs take rank 0's entropy, so that every
+        # rank shuffles alike
         shuffle_rng = np.random.default_rng(
-            self.cfg.seed if self.cfg.seed > 0 else None)
+            shared_seed(self.cfg.seed if self.cfg.seed > 0 else None))
         best_val = float("inf")
         geometry = {"steps_per_dispatch": self.steps_per_dispatch,
                     "n_batches": len(train_batches)}
@@ -405,9 +476,8 @@ class Trainer:
 
             def on_ckpt(dispatch, p, o, _epoch=epoch, _state=epoch_state,
                         _key=epoch_key):
-                save_checkpoint(
-                    savefile, p, self.vocab, self.cfg, opt_state=o,
-                    epoch=_epoch - 1,
+                self._save(
+                    savefile, p, o, epoch=_epoch - 1,
                     position=make_position(_epoch, dispatch, _state, _key,
                                            geometry))
                 self.metrics.log(event="ckpt", epoch=_epoch,
@@ -420,8 +490,7 @@ class Trainer:
                 ckpt_every=ckpt_every if savefile else None,
                 on_checkpoint=on_ckpt if savefile else None)
             if savefile:
-                save_checkpoint(savefile, params, self.vocab, self.cfg,
-                                opt_state=opt, epoch=epoch)
+                self._save(savefile, params, opt, epoch=epoch)
             record = {"event": "epoch", "epoch": epoch}
             if eval_train_loss:
                 record["train_loss"] = round(
@@ -431,8 +500,7 @@ class Trainer:
                 record["val_loss"] = round(val_loss, 4)
                 if bestfile and val_loss < best_val:
                     best_val = val_loss
-                    save_checkpoint(bestfile, params, self.vocab, self.cfg,
-                                    opt_state=opt, epoch=epoch)
+                    self._save(bestfile, params, opt, epoch=epoch)
                     record["best"] = True
             self.metrics.log(**record)
         return params, opt

@@ -1,6 +1,6 @@
 """The port's command line (``lrcn_tpu_torch/cli.py``) against the JAX
 package's (``lrcn_tpu/cli.py``), on the CPU: the parser surface, the
-helpers, the refusals of what is not ported yet, and ``--device``.
+helpers and ``--device``.
 ``export`` runs in ``test_torch_export_cli.py``.
 
 The other ``tests/test_torch_cli_*.py`` files and ``test_torch_http.py``
@@ -205,36 +205,7 @@ def test_pyproject_names_the_console_script():
     assert 'lrcn-torch = "lrcn_tpu_torch.cli:main"' in text
 
 
-# --- (h) refusals and --device ---
-
-
-@pytest.mark.parametrize("flags, item", [
-    (["--mesh", "2", "1"], 7), (["--pipeline"], 7),
-    (["--coordinator", "h:1"], 7), (["--num-processes", "2"], 7),
-    (["--process-id", "0"], 7)])
-def test_train_refuses_multi_device_flags(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
-        port_main(["train", "--datafiles", str(tmp_path / "x.token"),
-                   "--features", str(tmp_path / "none"), *flags])
-    assert not os.listdir(tmp_path)
-
-
-@pytest.mark.parametrize("flags, item", [(["--mesh", "2"], 7)])
-def test_serve_refuses_what_is_not_ported(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
-        port_main(["serve", "--loadfile", str(tmp_path / "none"),
-                   "--port", "0", *flags])
-
-
-def test_refusals_exit_nonzero_from_the_shell(tmp_path):
-    env = dict(os.environ, PYTHONPATH=REPO)
-    for argv in (["serve", "--loadfile", "x", "--mesh", "2"],
-                 ["train", "--datafiles", "x.token", "--mesh", "1", "1"]):
-        out = subprocess.run(
-            [sys.executable, "-m", "lrcn_tpu_torch", "--device", "cpu",
-             *argv], capture_output=True, text=True, cwd=str(tmp_path),
-            env=env, timeout=120)
-        assert out.returncode != 0 and "not ported yet" in out.stderr, argv
+# --- (h) --device ---
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA card is here")

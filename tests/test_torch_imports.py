@@ -58,6 +58,13 @@ SLICE_MODULES = [
     "lrcn_tpu_torch.serve.native_http",
     "lrcn_tpu_torch.utils",
     "lrcn_tpu_torch.utils.profiling",
+    "lrcn_tpu_torch.parallel",
+    "lrcn_tpu_torch.parallel.mesh",
+    "lrcn_tpu_torch.parallel.decode",
+    "lrcn_tpu_torch.parallel.train",
+    "lrcn_tpu_torch.parallel.pipeline",
+    "lrcn_tpu_torch.parallel.distributed",
+    "lrcn_tpu_torch.parallel.dryrun",
 ]
 
 
@@ -135,4 +142,23 @@ def test_joint_modules_import_in_any_order(first):
                 "from lrcn_tpu_torch.models.joint import JointTrainStep\n"
                 "assert t.JointTrainer.__module__ == "
                 "'lrcn_tpu_torch.train.joint'\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("first", ["lrcn_tpu_torch.parallel.train",
+                                   "lrcn_tpu_torch.parallel.decode",
+                                   "lrcn_tpu_torch.serve.service",
+                                   "lrcn_tpu_torch.train.trainer"])
+def test_parallel_modules_import_in_any_order(first):
+    """The sharded steps import the trainer, whose mesh path imports them
+    at use, and the service imports the sharded search: no import cycle,
+    whichever module comes first; the package exports JAX's names."""
+    proc = _run(f"import {first}\n"
+                "import lrcn_tpu_torch.parallel as p\n"
+                "assert sorted(p.__all__) == sorted(["
+                "'make_mesh', 'mesh_from_config', 'ShardedTrainStep', "
+                "'PipelinedTrainStep', 'to_pipeline_params', "
+                "'from_pipeline_params', 'batch_sharding', "
+                "'param_sharding', 'shard_params'])\n"
+                "import lrcn_tpu_torch.train.trainer\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
