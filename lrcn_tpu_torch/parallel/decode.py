@@ -127,12 +127,15 @@ def shard_for_decode(params: LRCNDecoder, feats, mesh: Mesh,
 
 
 def sharded_beam_search(params: LRCNDecoder, feats, mesh: Mesh, *,
-                        beam_width: int = 3, max_words: int = 30
+                        beam_width: int = 3, max_words: int = 30,
+                        shards: DataShards | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Beam search (greedy for ``beam_width == 1``) with the batch split
     over the mesh's data axis; returns the tokens and scores of the whole
-    batch, in order, on the first shard's device."""
-    shards = DataShards(mesh)
+    batch, in order, on the first shard's device.  A caller that searches
+    again passes its ``shards`` (``DataShards(mesh)``): they keep the
+    decoder's replicas on the other devices, copied at the first call."""
+    shards = shards or DataShards(mesh)
     pairs = shard_for_decode(params, feats, mesh, shards)
     outs = shards.run(lambda i, pair: search(pair[0], pair[1],
                                              beam_width=beam_width,
