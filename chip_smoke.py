@@ -7,9 +7,6 @@
                                        # joint dispatch (torch.profiler)
     python3 chip_smoke.py --export     # instead: phases 1, 2 and 15 alone
     python3 chip_smoke.py --mesh       # instead: phases 1, 2 and 16 alone
-    python3 chip_smoke.py --cards      # instead: phases 1, 2 and the
-                                       # multi-device run over every card
-                                       # of the machine (2 or more)
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
@@ -53,7 +50,9 @@ exits nonzero:
    shapes at B=8 in bf16, 3 of them in f32, and a ragged 2x13x17x5->7
    shape with and without ReLU, with median CUDA-event times of the
    kernel, the plain version and cuDNN's own conv in the same dtype, and
-   the 13-conv stack sums of the three; the 12 aligned bf16 convs must take
+   the 13-conv stack sums of the three; checked and not timed, one image
+   at 56x56 and 14x14 and phase 16's shard of half an encoder batch (B=4)
+   at every bf16 shape and the f32 ones; the 12 aligned bf16 convs must take
    the wgmma route, conv1_1 and the ragged shape the scalar route, f32 the
    fma route; the host time of one launch of the wgmma and scalar routes,
    and of a wrapper call through ``lrcn::conv3x3_relu`` against the
@@ -151,8 +150,10 @@ exits nonzero:
    search and 2 x 13 conv an encoder batch at the routing functions'
    routes; the sharded search bit-equal (tokens and scores, bf16 and f32)
    to one-device searches of each shard's rows, and its agreement with
-   one search of all the rows printed; the f32 mesh service's captions
-   equal to the one-device service's (w_out x 8); 1- and 2-shard
+   one search of all the rows printed; at f32 (w_out x 8) the mesh
+   service's fc7 rows (before their L1 normalization) within FC7_RTOL of
+   the one-device service's and its
+   captions by id, by feature and by image equal to it; 1- and 2-shard
    captions/s (no scaling on one card); ``lrcn-torch serve --mesh 1`` over
    HTTP and ``--mesh 2`` refused with JAX's message; two gloo ranks on the
    card (``chip_smoke.py --mesh-rank``: ``ShardedTrainStep`` at (2, 1) and
@@ -364,7 +365,6 @@ MESH_TOL = 1e-5
 #  are held at MESH_TOL
 MESH_CNN_TOL = 1e-4
 RESULTS: dict = {}                  # figures a later phase prints beside
-CARDS_ROWS = 16 * DECODE_BATCH      # --cards: the 16x256 decode's images
 
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
@@ -852,12 +852,12 @@ def phase_topk(rng) -> dict:
                       "plain_ms, library_ms); wall_ms by CUDA events"}
 
 
-def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str,
-                   score_atol: float = SCORE_ATOL) -> tuple[int, float, int]:
+def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str
+                   ) -> tuple[int, float, int]:
     """Hold a kernel path's f32 captions against the plain path's: at least
     CAPTION_AGREEMENT equal, and every differing one a near-tie (score gap
-    <= ``score_atol``, SCORE_ATOL by default).  Returns (captions equal,
-    max score gap, distinct captions)."""
+    <= SCORE_ATOL).  Returns (captions equal, max score gap, distinct
+    captions)."""
     from lrcn_tpu_torch.decode.writer import detokenize_batch
 
     cap_k = detokenize_batch(tok_k.cpu().numpy(), vocab)
@@ -867,7 +867,7 @@ def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str,
     agree = 1 - len(differ) / len(cap_k)
     check(agree >= CAPTION_AGREEMENT,
           f"{label}: kernel vs plain captions agree on {agree:.4f} only")
-    check(all(gaps[i] <= score_atol for i in differ),
+    check(all(gaps[i] <= SCORE_ATOL for i in differ),
           f"{label}: differing captions' score gaps {gaps[differ].tolist()}")
     return len(cap_k) - len(differ), float(gaps.max()), len(set(cap_k))
 
@@ -1034,6 +1034,14 @@ def phase_conv() -> dict:
     cases += [(f"B=1 {h}x{h}x{c}->{f} bfloat16", (1, h, h, c, f),
                torch.bfloat16, True) for h, c, f in ((56, 256, 256),
                                                      (14, 512, 512))]
+    # a shard of phase 16's mesh service: half an encoder batch, every
+    # VGG shape in bf16 and phase 16's f32 check's; checked and not timed
+    shard = ENCODE_BATCH // MESH_SHARDS
+    cases += [(f"B={shard} {h}x{h}x{c}->{f} {dtype}".replace("torch.", ""),
+               (shard, h, h, c, f), dtype, True)
+              for dtype in (torch.bfloat16, torch.float32)
+              for h, c, f, _ in VGG_CONVS
+              if dtype == torch.bfloat16 or (h, c, f) in F32_CONVS]
     worst, times = 0.0, {}
     for label, (b_dim, h, w_dim, c, f), dtype, relu in cases:
         x = randn(b_dim, h, w_dim, c)
@@ -1059,7 +1067,7 @@ def phase_conv() -> dict:
               f"conv3x3 {label}: max |err| {err} > {CONV_RTOL[dtype]} x "
               f"{scale}")
         worst = max(worst, err)
-        if label.startswith("B=1"):
+        if label.startswith("B="):
             print(f"[7 conv3x3] {label}: route {want} max|err|={err:.3g} "
                   f"(tol {CONV_RTOL[dtype]:.3g} x max|y| {scale:.3g})")
             del x, w, y_k, y_p
@@ -1347,11 +1355,10 @@ def learnable_set():
     return vocab, caps, store
 
 
-def train_setup(batch: int = TRAIN_BATCH):
+def train_setup():
     """A trainer at the reference width (K=8, dropout 0.4, bf16) on the
-    card, its parameters and optimizer, 4 dispatches of synthetic batches
-    of ``batch`` captions (random words, lengths 10-20) and a 10,000-row
-    feature store."""
+    card, its parameters and optimizer, 6 dispatches of synthetic batches
+    (random words, lengths 10-20) and a 10,000-row feature store."""
     from lrcn_tpu_torch.config import LRCNConfig
     from lrcn_tpu_torch.core.vocab import Vocab
     from lrcn_tpu_torch.data.batcher import Batch
@@ -1369,12 +1376,12 @@ def train_setup(batch: int = TRAIN_BATCH):
         store.add(i, row)
     batches = []
     for _ in range((1 + TRAIN_DISPATCHES) * TRAIN_K):
-        lengths = rng.integers(10, TRAIN_LEN + 1, batch).astype(
+        lengths = rng.integers(10, TRAIN_LEN + 1, TRAIN_BATCH).astype(
             np.int32)
-        tokens = rng.integers(3, VOCAB, (batch, TRAIN_LEN)).astype(
+        tokens = rng.integers(3, VOCAB, (TRAIN_BATCH, TRAIN_LEN)).astype(
             np.int32)
         tokens[np.arange(TRAIN_LEN)[None, :] >= lengths[:, None]] = 0
-        batches.append(Batch(rng.integers(0, TRAIN_ROWS, batch),
+        batches.append(Batch(rng.integers(0, TRAIN_ROWS, TRAIN_BATCH),
                              tokens, lengths))
     vocab = Vocab([f"word{i}" for i in range(VOCAB - 3)])
     trainer = Trainer(cfg, vocab, metrics=MetricsLogger(echo=False),
@@ -3529,26 +3536,14 @@ def phase_export(smi: str) -> dict[str, dict]:
             "export_image": info["counts"][f"image {EXPORT_IMAGES}"]}
 
 
-def mesh_shapes(world: int) -> list[tuple[str, tuple[int, int]]]:
-    """The rank steps' meshes over ``world`` ranks: ``ShardedTrainStep``
-    data parallel and with a 2-way vocabulary axis, ``PipelinedTrainStep``
-    with its 2 stages, ``JointTrainStep`` data parallel."""
-    half = (world // 2, 2)
-    return [(f"{kind} {d}x{m}", (d, m)) for kind, (d, m) in (
-        ("sharded", (world, 1)), ("sharded", half), ("pipelined", half),
-        ("joint", (world, 1)))]
-
-
-def mesh_rank(rank: int, world: int, work: str, backend: str,
-              train: bool = False) -> None:
-    """One of phase 16's training ranks (``--mesh-rank``): join the group,
-    gloo on the one card (NCCL refuses a second rank on one GPU; every
-    rank then drives the card) or NCCL with a card a rank
-    (``--cards``), then the narrow f32 steps of ``mesh_inputs`` over
-    ``mesh_shapes(world)``.  Writes each step's loss and gathered
-    gradients, and the kernels' launch counts, to ``work/rank<rank>.pkl``;
-    with ``train``, also the reference width's ms per step
-    (``cards_train``)."""
+def mesh_rank(rank: int, world: int, work: str) -> None:
+    """One of phase 16's training ranks (``--mesh-rank``): join a gloo
+    group on the card (NCCL refuses a second rank on one GPU), then the
+    narrow f32 steps of ``mesh_inputs`` over meshes that list the card
+    twice: ``ShardedTrainStep`` at (2, 1) and (1, 2), ``PipelinedTrainStep``
+    at (1, 2), ``JointTrainStep`` at (2, 1).  Writes each step's loss and
+    gathered gradients, and the kernels' launch counts, to
+    ``work/rank<rank>.pkl``."""
     import pickle
 
     from lrcn_tpu_torch.config import LRCNConfig
@@ -3563,16 +3558,16 @@ def mesh_rank(rank: int, world: int, work: str, backend: str,
     from lrcn_tpu_torch.train.joint import load_joint_params
 
     pdist.initialize(f"file://{os.path.join(work, 'rendezvous')}", world,
-                     rank, backend=backend)
+                     rank, backend="gloo")
     with open(os.path.join(work, "inputs.pkl"), "rb") as f:
         inputs = pickle.load(f)
-    # gloo: every rank on the one card; NCCL: make_mesh's card a rank
-    devices = [torch.device("cuda", 0)] * world if backend == "gloo" else None
+    devices = [torch.device("cuda", 0)] * world
     fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
     reset_counts(*fns)
     out = {}
     t0 = time.perf_counter()
-    for name, shape in mesh_shapes(world):
+    for name, shape in (("sharded 2x1", (2, 1)), ("sharded 1x2", (1, 2)),
+                        ("pipelined 1x2", (1, 2)), ("joint 2x1", (2, 1))):
         kind = name.split()[0]
         cfg_kw, tree, batch, masks = inputs[kind]
         cfg = LRCNConfig(**cfg_kw)
@@ -3602,8 +3597,6 @@ def mesh_rank(rank: int, world: int, work: str, backend: str,
         out[name] = (float(loss), grads)
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
-    if train:
-        out["train"] = cards_train(world)
     out["counts"] = read_counts(*fns)
     with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -3682,30 +3675,24 @@ def mesh_reference(inputs: dict) -> dict:
     return out
 
 
-def phase_mesh_ranks(world: int = MESH_RANKS, backend: str = "gloo",
-                     train: bool = False, cnn_tol: float = MESH_CNN_TOL,
-                     joint_tol: float = MESH_TOL) -> tuple[float, list]:
-    """``world`` ranks (``chip_smoke.py --mesh-rank``: gloo on the one
-    card, or NCCL with a card a rank) against the one-process step: loss
-    and every gradient within ``MESH_TOL`` of the largest entry (the
-    joint step's: ``cnn_tol`` for its CNN, ``joint_tol`` for its
-    decoder), and no kernel launched in any rank; every figure is printed
-    before the checks.  Returns the seconds
-    and the ranks' results."""
+def phase_mesh_ranks() -> float:
+    """Two gloo ranks on the card (``chip_smoke.py --mesh-rank``) against
+    the one-process step: loss and every gradient within ``MESH_TOL`` of
+    the largest entry, and no kernel launched in any rank.  Returns the
+    seconds."""
     import pickle
 
     t0 = time.perf_counter()
-    work = os.path.join(WORK, f"mesh_ranks_{backend}")
+    work = os.path.join(WORK, "mesh_ranks")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     inputs = mesh_inputs(work)
     env = {k: v for k, v in os.environ.items() if k != "WORLD_SIZE"}
     procs = [subprocess.Popen([sys.executable, SCRIPT, "--mesh-rank",
-                               str(r), str(world), work, backend]
-                              + (["train"] if train else []),
+                               str(r), str(MESH_RANKS), work],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=env)
-             for r in range(world)]
+             for r in range(MESH_RANKS)]
     try:
         want = mesh_reference(inputs)
         outs = [finish(p, MESH_RANK_TIMEOUT) for p in procs]
@@ -3717,51 +3704,49 @@ def phase_mesh_ranks(world: int = MESH_RANKS, backend: str = "gloo",
     for rank, (code, out, err) in enumerate(outs):
         check(code == 0, f"mesh rank {rank} exited {code}: {err[-3000:]}")
     ranks = []
-    for rank in range(world):
+    for rank in range(MESH_RANKS):
         with open(os.path.join(work, f"rank{rank}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
-    lines, bad = [], []
-    for name, _ in mesh_shapes(world):
+    lines = []
+    for name in ("sharded 2x1", "sharded 1x2", "pipelined 1x2",
+                 "joint 2x1"):
         want_loss, want_grads = want[name.split()[0]]
-        worst = {"cnn": (None, 0.0), "rest": (None, 0.0)}
+        worst_key, worst = None, 0.0
         for rank, got in enumerate(ranks):
             loss, grads = got[name]
-            if set(grads) != set(want_grads):
-                bad.append(f"{name} rank {rank}: gradients {sorted(grads)}")
-                continue
-            if abs(loss - want_loss) / abs(want_loss) > MESH_TOL:
-                bad.append(f"{name} rank {rank}: loss {loss} vs the "
-                           f"one-process {want_loss}")
+            loss_err = abs(loss - want_loss) / abs(want_loss)
+            check(set(grads) == set(want_grads),
+                  f"{name}: gradients {sorted(grads)}")
+            check(loss_err <= MESH_TOL, f"{name} rank {rank}: loss {loss} "
+                                        f"vs the one-process {want_loss}")
             for k, g in want_grads.items():
                 err = float(np.abs(grads[k] - g).max()
                             / max(np.abs(g).max(), 1e-30))
-                part = "cnn" if k.startswith("cnn/") else "rest"
-                tol = (cnn_tol if part == "cnn" else joint_tol
-                       if name.startswith("joint") else MESH_TOL)
-                if err > tol:
-                    bad.append(f"{name} rank {rank}: gradient of {k} off by "
-                               f"{err:.3g} of its largest entry")
-                if err >= worst[part][1]:
-                    worst[part] = (k, err)
+                tol = MESH_CNN_TOL if k.startswith("cnn/") else MESH_TOL
+                check(err <= tol, f"{name} rank {rank}: gradient of {k} off "
+                                  f"by {err:.3g} of its largest entry (tol "
+                                  f"{tol})")
+                if err >= worst:
+                    worst_key, worst = k, err
+        rest = max(float(np.abs(ranks[0][name][1][k] - g).max()
+                         / max(np.abs(g).max(), 1e-30))
+                   for k, g in want_grads.items() if not k.startswith("cnn/"))
         lines.append(f"{name}: loss {ranks[0][name][0]:.6f} (one process "
                      f"{want_loss:.6f}), {len(want_grads)} gradients, worst "
-                     + ", ".join(f"{k} {e:.3g}" for k, e in worst.values()
-                                 if k is not None))
+                     f"{worst_key} {worst:.3g}, worst outside the CNN "
+                     f"{rest:.3g}")
     counts = [r["counts"] for r in ranks]
-    seconds = time.perf_counter() - t0
-    where = ("on cuda:0 (NCCL refuses one card twice)" if backend == "gloo"
-             else "a card each")
-    print(f"[16 mesh] {world} {backend} ranks {where}, f32, TF32 off, "
-          f"dropout {TRAIN_DROPOUT} with the global masks, against the "
-          f"one-process step (tol {MESH_TOL} of the largest entry; the "
-          f"joint's {cnn_tol} for the CNN, {joint_tol} for the decoder): "
-          + "; ".join(lines)
-          + f"; launches {counts}; the ranks' steps "
-          f"{max(r['seconds'] for r in ranks):.1f} s, {seconds:.1f} s in all")
-    check(not bad, "; ".join(bad))
     check(all(sum(c.values()) == 0 for c in counts),
           f"the rank steps launched hand-written kernels: {counts}")
-    return seconds, ranks
+    seconds = time.perf_counter() - t0
+    print(f"[16 mesh] {MESH_RANKS} gloo ranks on cuda:0 (NCCL refuses one "
+          f"card twice), f32, TF32 off, dropout {TRAIN_DROPOUT} with the "
+          f"global masks, against the one-process step (tol {MESH_TOL} of "
+          f"the largest entry, {MESH_CNN_TOL} for the CNN's): "
+          + "; ".join(lines) + f"; no kernel "
+          f"launched; the ranks' steps {max(r['seconds'] for r in ranks):.1f}"
+          f" s, {seconds:.1f} s in all")
+    return seconds
 
 
 def phase_mesh_nccl(smi: str) -> float:
@@ -3842,6 +3827,7 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
     import http.client
     import threading
 
+    import lrcn_tpu_torch.serve.service as service_mod
     from lrcn_tpu_torch import cli
     from lrcn_tpu_torch.data.feature_store import FeatureStore
     from lrcn_tpu_torch.decode.beam import beam_search
@@ -3971,24 +3957,52 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
               f"ones' score gaps median {m:.3g}, max {g:.3g}"
               for k, (n, g, m) in agree.items()))
 
-    # f32: the mesh service's captions equal the one-device service's, on
-    # the checkpoint with phase 13's sharper output projection (w_out x 8:
-    # fewer tied beams; the random one's near-ties are held above)
-    dec32 = load_checkpoint(os.path.join(WORK, "ckpt"), "cuda",
-                            compute_dtype=torch.float32)["decoder"]
-    dec32.w_out.mul_(CLI_F32_SHARPEN)
-    f32 = {}
+    # f32: the mesh service's answers by id, by feature and by image equal
+    # the one-device service's, on the joint checkpoint with phase 13's
+    # sharper output projection (w_out x 8: fewer tied beams; the random
+    # one's near-ties are held above); the encoder's shards (B=4) give fc7
+    # rows within FC7_RTOL of the one-device encoder's (B=8)
+    ck32 = load_checkpoint(joint, "cuda", compute_dtype=torch.float32,
+                           opt_state=False)
+    ck32["decoder"].w_out.mul_(CLI_F32_SHARPEN)
+    f32, fc7 = {}, {}
     for name, extra in (("one", {"device": "cuda"}), ("mesh", {"mesh": mesh})):
-        s32 = CaptionService(cfg, dec32, vocab, store=store, beam_width=BEAM,
-                             max_words=MAX_WORDS, decode_batch=DECODE_BATCH,
-                             **extra)
-        f32[name] = s32.caption_ids(ids[:MESH_F32_IDS])
+        s32 = CaptionService(cfg, ck32["decoder"], vocab, store=store,
+                             vgg=ck32["vgg"],
+                             average_image=ck32["average_image"],
+                             beam_width=BEAM, max_words=MAX_WORDS,
+                             decode_batch=DECODE_BATCH, **extra)
+        f32[name] = {"ids": s32.caption_ids(ids[:MESH_F32_IDS]),
+                     "features": s32.caption_features(list(raw)),
+                     "images": s32.caption_images(images)}
+        # fc7 through the service's own encoder path, before its L1
+        # normalization (held) and after it (printed): fc7 has no ReLU,
+        # so the normalization divides by a signed row sum, which
+        # magnifies the products' rounding some hundred times
+        norm = service_mod.l1_normalize_device
+        fc7[name] = {}
+        for label, fn in (("raw", lambda f: f), ("l1", norm)):
+            service_mod.l1_normalize_device = fn
+            try:
+                fc7[name][label] = np.stack(s32._encode_finalize(
+                    s32._encode_fn(images[:ENCODE_BATCH])))
+            finally:
+                service_mod.l1_normalize_device = norm
         s32.close()
-    same = sum(a == b for a, b in zip(f32["one"], f32["mesh"]))
-    check(same == MESH_F32_IDS, f"f32 mesh service: {same}/{MESH_F32_IDS} "
-                                f"captions equal to the one-device service")
-    del dec32
-
+    fc7_err = {label: float(np.abs(fc7["mesh"][label] - want).max()
+                            / np.abs(want).max())
+               for label, want in fc7["one"].items()}
+    check(fc7_err["raw"] <= FC7_RTOL,
+          f"f32 mesh service: fc7 off the one-device service's by "
+          f"{fc7_err['raw']:.3g} of its largest entry (tol {FC7_RTOL})")
+    same = {kind: sum(a == b for a, b in zip(f32["one"][kind],
+                                             f32["mesh"][kind]))
+            for kind in f32["one"]}
+    sizes = {"ids": MESH_F32_IDS, "features": MESH_FEATURES,
+             "images": MESH_IMAGES}
+    check(same == sizes, f"f32 mesh service: captions equal to the "
+                         f"one-device service's {same} of {sizes}")
+    del ck32
     # captions/s of one and two shards on the one card, for the record
     burst = torch.from_numpy(store.table()[np.arange(MESH_BURST)
                                            % len(store)]).cuda()
@@ -4006,8 +4020,12 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
         tokens.cpu()
         rates[name] = 3 * MESH_BURST / (time.perf_counter() - t1)
     print(f"[16 mesh] f32 mesh service (w_out x {CLI_F32_SHARPEN:g}): "
-          f"{same}/{MESH_F32_IDS} id captions equal to the one-device "
-          f"service's; a {MESH_BURST}-row bf16 search on {smi}: "
+          f"captions equal to the one-device service's: " + ", ".join(
+              f"{k} {same[k]}/{n}" for k, n in sizes.items())
+          + f" ({len(set(f32['one']['images']))} distinct image captions)"
+          f"; fc7 of {ENCODE_BATCH} images off by {fc7_err['raw']:.3g} "
+          f"of its largest entry (tol {FC7_RTOL}), {fc7_err['l1']:.3g} "
+          f"once L1-normalized; a {MESH_BURST}-row bf16 search on {smi}: "
           + ", ".join(f"{k} {v:.1f} captions/s" for k, v in rates.items())
           + " (two shards on one card measure no scaling)")
 
@@ -4050,132 +4068,11 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
           f"over HTTP equal to the service's own captions; serve --mesh 2 "
           f"refused: {refused!r}")
 
-    rank_s, _ = phase_mesh_ranks()
+    rank_s = phase_mesh_ranks()
     nccl_s = phase_mesh_nccl(smi)
     print(f"[16 mesh] seconds: {time.perf_counter() - t0:.1f} (ranks "
           f"{rank_s:.1f}, NCCL trainer {nccl_s:.1f})")
     return launches
-
-
-def cards_train(world: int) -> dict:
-    """This NCCL rank's share of ``--cards``'s weak-scaling run:
-    ``Trainer(mesh=make_mesh((world, 1)))`` at the reference width with
-    TRAIN_BATCH captions a rank (a global batch of ``world`` x
-    TRAIN_BATCH), phase 10's other settings; ms per step and global
-    words/s over TRAIN_DISPATCHES dispatches after a warm-up one."""
-    from lrcn_tpu_torch.parallel import make_mesh
-    from lrcn_tpu_torch.train.metrics import MetricsLogger
-    from lrcn_tpu_torch.train.trainer import Trainer
-
-    one, params1, _, batches, store = train_setup(TRAIN_BATCH * world)
-    tree = {k: params1[k].detach().cpu().numpy() for k in params1}
-    trainer = Trainer(one.cfg, one.vocab, metrics=MetricsLogger(echo=False),
-                      steps_per_dispatch=TRAIN_K,
-                      mesh=make_mesh((world, 1)))
-    del one, params1
-    params, opt = trainer.restore(tree)
-    shuffle = np.random.default_rng(SEED)
-    trainer.train_epoch(params, opt, batches[:TRAIN_K], store, 1, shuffle,
-                        log_every=0)                    # warm-up
-    timed = batches[TRAIN_K:]
-    t0 = time.perf_counter()
-    trainer.train_epoch(params, opt, timed, store, 1, shuffle, log_every=0)
-    dt = time.perf_counter() - t0                # train_epoch synchronizes
-    words = int(sum(np.maximum(b.lengths, 0).sum() for b in timed))
-    return {"ms": dt / len(timed) * 1e3, "words_per_s": words / dt,
-            "batch": TRAIN_BATCH * world}
-
-
-def phase_cards(smi: str, rng) -> dict:
-    """``--cards``: multi-device across every card of the machine (at
-    least 2).  Serving: a 16x256-image bf16 beam search over 1, 2 and all
-    the cards (``sharded_beam_search``, a shard a card), captions/s, each
-    sharded search bit-equal to one-card searches of its shards' rows, the
-    kernels' launches 42 LSTM and 21 top-k a shard.  Training: the rank
-    steps of phase 16 on NCCL ranks, a card each, against the one-process
-    step; weak scaling at the reference width (TRAIN_BATCH captions a
-    rank) against one card in the same call."""
-    from lrcn_tpu_torch.decode.beam import beam_search
-    from lrcn_tpu_torch.models.lrcn import params_from_numpy
-    from lrcn_tpu_torch.ops.kernels import fused_lstm_step, topk_logsumexp
-    from lrcn_tpu_torch.parallel import make_mesh
-    from lrcn_tpu_torch.parallel.decode import DataShards, sharded_beam_search
-
-    t0 = time.perf_counter()
-    n = torch.cuda.device_count()
-    check(n >= 2, f"--cards needs 2 or more cards, found {n}")
-    smi = smi.splitlines()[0]           # nvidia-smi prints a line a card
-    dec = params_from_numpy(random_tree(rng), torch.device("cuda", 0),
-                            torch.bfloat16)
-    raw = np.abs(rng.standard_normal((CARDS_ROWS, CNN_DIM))
-                 ).astype(np.float32)
-    feats = torch.from_numpy(raw / raw.sum(axis=1, keepdims=True)).cuda()
-    rates, iters, steps = {}, 3, MAX_WORDS + 1
-    for shards in sorted({1, 2, n}):
-        mesh = make_mesh((shards, 1), devices=[torch.device("cuda", i)
-                                               for i in range(shards)])
-        cards = DataShards(mesh)     # the replicas, copied once
-        run = lambda: sharded_beam_search(dec, feats, mesh, beam_width=BEAM,
-                                          max_words=MAX_WORDS, shards=cards)
-        tokens, scores = run()
-        size = CARDS_ROWS // shards
-        one = [beam_search(dec, feats[i:i + size], beam_width=BEAM,
-                           max_words=MAX_WORDS)
-               for i in range(0, CARDS_ROWS, size)]
-        check(torch.equal(tokens, torch.cat([t for t, _ in one]))
-              and torch.equal(scores, torch.cat([c for _, c in one])),
-              f"{shards}-card search: tokens or scores differ from one-card "
-              f"searches of its shards' rows")
-        for i in range(n):
-            torch.cuda.synchronize(i)
-        reset_counts(fused_lstm_step, topk_logsumexp)
-        t1 = time.perf_counter()
-        for _ in range(iters):
-            tokens, _ = run()
-        tokens.cpu()
-        rates[shards] = iters * CARDS_ROWS / (time.perf_counter() - t1)
-        counts = read_counts(fused_lstm_step, topk_logsumexp)
-        check(counts == {"fused_lstm_step": 2 * steps * shards * iters,
-                         "topk_logsumexp": steps * shards * iters},
-              f"{shards}-card search: launches {counts}")
-    print(f"[cards] beam-{BEAM} search of {CARDS_ROWS} images, bf16, "
-          f"max_words {MAX_WORDS}, a shard a card, on {n} x {smi}: "
-          + ", ".join(f"{k} card{'s' if k > 1 else ''} {v:.1f} captions/s"
-                      for k, v in rates.items())
-          + "; each equal, tokens and scores, to one-card searches of its "
-          f"shards' rows; 42 LSTM and 21 top-k launches a shard")
-
-    # training: the rank steps on NCCL, then weak scaling
-    trainer, params, opt, batches, store = train_setup()
-    shuffle = np.random.default_rng(SEED)
-    trainer.train_epoch(params, opt, batches[:TRAIN_K], store, 1, shuffle,
-                        log_every=0)                    # warm-up
-    timed = batches[TRAIN_K:]
-    t1 = time.perf_counter()
-    trainer.train_epoch(params, opt, timed, store, 1, shuffle, log_every=0)
-    dt = time.perf_counter() - t1
-    words = int(sum(np.maximum(b.lengths, 0).sum() for b in timed))
-    one_ms, one_wps = dt / len(timed) * 1e3, words / dt
-    del trainer, params, opt, store
-    # a rank's joint step sees one image of the four: cuDNN runs the VGG
-    # at a batch of 1, whose rounding differs from the batch of 4's
-    # (conv1_1/b's gradient read 7.54e-3 of its largest entry, and the
-    # fc7 rows it feeds moved the decoder's up to 6.57e-5): phase 12's
-    # tolerance for a joint step through other conv configurations
-    _, ranks = phase_mesh_ranks(world=n, backend="nccl", train=True,
-                                cnn_tol=JOINT_GRAD_RTOL,
-                                joint_tol=JOINT_GRAD_RTOL)
-    train = ranks[0]["train"]
-    print(f"[cards] training at the reference width, bf16, K={TRAIN_K}, "
-          f"B={TRAIN_BATCH} a card: one card {one_ms:.3f} ms per step, "
-          f"{one_wps:.1f} words/s; {n} NCCL ranks (global B="
-          f"{train['batch']}) {train['ms']:.3f} ms per step, "
-          f"{train['words_per_s']:.1f} words/s, "
-          f"{train['words_per_s'] / one_wps:.2f}x the words/s of one card "
-          f"on {smi}; {time.perf_counter() - t0:.1f} s")
-    return {"serving_captions_per_s": rates, "train_one_ms": one_ms,
-            "train_ranks_ms": train["ms"],
-            "train_speedup": train["words_per_s"] / one_wps}
 
 
 @torch.inference_mode()
@@ -4337,8 +4234,7 @@ def main() -> None:
         export_cli(sys.argv[2:])
         return
     if sys.argv[1:2] == ["--mesh-rank"]:
-        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-                  sys.argv[5], sys.argv[6:7] == ["train"])
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
     name, smi = phase_card()
     phase_build()
@@ -4354,10 +4250,6 @@ def main() -> None:
             vocab_size=VOCAB, compute_dtype="bfloat16"))
         write_joint_checkpoint(os.path.join(WORK, "joint"), tree, rng)
         print(json.dumps(phase_export(smi)))
-        shutil.rmtree(WORK, ignore_errors=True)
-        return
-    if sys.argv[1:] == ["--cards"]:
-        print(json.dumps(phase_cards(smi, rng)))
         shutil.rmtree(WORK, ignore_errors=True)
         return
     if sys.argv[1:] == ["--mesh"]:

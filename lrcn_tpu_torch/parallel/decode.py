@@ -51,13 +51,15 @@ class DataShards:
 
     def replicate(self, obj) -> list:
         """``obj`` on every shard's device (one copy per distinct
-        device)."""
+        device), taken at the first call for ``obj``: a later change to
+        ``obj`` in place does not reach the copies."""
         out = []
         for dev in self.devices:
             key = (id(obj), dev)
-            if key not in self._copies:
-                self._copies[key] = replicate(obj, dev)
-            out.append(self._copies[key])
+            # the source is kept beside its copy, so its id is not reused
+            if key not in self._copies or self._copies[key][0] is not obj:
+                self._copies[key] = (obj, replicate(obj, dev))
+            out.append(self._copies[key][1])
         return out
 
     def split(self, n_rows: int) -> list[slice]:
@@ -127,15 +129,12 @@ def shard_for_decode(params: LRCNDecoder, feats, mesh: Mesh,
 
 
 def sharded_beam_search(params: LRCNDecoder, feats, mesh: Mesh, *,
-                        beam_width: int = 3, max_words: int = 30,
-                        shards: DataShards | None = None
+                        beam_width: int = 3, max_words: int = 30
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Beam search (greedy for ``beam_width == 1``) with the batch split
     over the mesh's data axis; returns the tokens and scores of the whole
-    batch, in order, on the first shard's device.  A caller that searches
-    again passes its ``shards`` (``DataShards(mesh)``): they keep the
-    decoder's replicas on the other devices, copied at the first call."""
-    shards = shards or DataShards(mesh)
+    batch, in order, on the first shard's device."""
+    shards = DataShards(mesh)
     pairs = shard_for_decode(params, feats, mesh, shards)
     outs = shards.run(lambda i, pair: search(pair[0], pair[1],
                                              beam_width=beam_width,

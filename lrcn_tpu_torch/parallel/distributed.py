@@ -36,8 +36,7 @@ _LAUNCHER_ENV_VARS = ("WORLD_SIZE",)
 _COUNT_ENV_VARS = ("SLURM_JOB_NUM_NODES", "OMPI_COMM_WORLD_SIZE")
 
 # a rank that does not arrive fails its peers' collectives after this long
-TIMEOUT = datetime.timedelta(seconds=float(
-    os.environ.get("LRCN_DIST_TIMEOUT_S", "600")))
+TIMEOUT = datetime.timedelta(seconds=600)
 
 
 def _cluster_environment() -> bool:

@@ -64,6 +64,23 @@ def test_shard_for_decode_splits_contiguously(tiny):
     assert DataShards(cpu_mesh(2)).split(6) == [slice(0, 3), slice(3, 6)]
 
 
+def test_replicas_are_cached_per_source_object():
+    """One copy per source object and device, reused while the object is
+    the same; an entry whose source is another object (an id reused after
+    the first one was freed) is not returned for it."""
+    meta = torch.device("meta")
+    shards = DataShards(make_mesh((2, 1), devices=[CPU, meta]))
+    a, b = torch.ones(3), torch.zeros(3)
+    here, there = shards.replicate(a)
+    assert here is a and there.device == meta
+    assert shards.replicate(a)[1] is there
+    assert shards.replicate(b)[1] is not there
+    stale = torch.empty(3, device=meta)
+    shards._copies[(id(b), meta)] = (a, stale)     # another object's entry
+    fresh = shards.replicate(b)[1]
+    assert fresh is not stale and fresh.device == meta
+
+
 def _mesh_services(tiny, n, **kw):
     cfg, vocab, params, store, root = tiny
     ck = load_checkpoint(str(root / "ckpt"), CPU)
