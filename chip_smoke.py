@@ -7,9 +7,14 @@
                                        # joint dispatch (torch.profiler)
     python3 chip_smoke.py --export     # instead: phases 1, 2 and 15 alone
     python3 chip_smoke.py --mesh       # instead: phases 1, 2 and 16 alone
+    python3 chip_smoke.py --graphs     # instead: phases 1, 2 and 17 alone
 
 Phases, each printing its own lines; any failure raises and the script
-exits nonzero:
+exits nonzero.  Every search and encoder batch of the serving and
+generation paths (phases 5, 6, 8, 9, 12, 13, 14, 16) runs eagerly at its
+first call of a shape and, from the second on, as one replay of a CUDA
+graph captured then (``lrcn_tpu_torch/utils/graphs.py``); the launch
+counts they hold count a replay's launches once each:
 
 1. card and software: ``nvidia-smi``'s name and power limit, torch and CUDA
    versions, ``require_cuda``;
@@ -161,7 +166,21 @@ exits nonzero:
    against the one-process step, loss and every gradient; a one-rank NCCL
    ``Trainer(mesh=make_mesh((1, 1)))`` at the reference width beside
    phase 10's ms per step, its checkpoint restored in the one-device
-   ``Trainer``; no training step launches a kernel.
+   ``Trainer``; no training step launches a kernel;
+17. one-program dispatch: at the reference width, bf16 and f32 (TF32
+   off), each graphed entry point against its eager body on the kernel
+   path, tokens and scores bit-equal, on inputs other than those it was
+   captured with: beam 3 at 1x64, 4x64, 1x256 and 16x256 images, greedy
+   and ``rows_search`` at 256, and raw and L1-normalized fc7 rows of
+   ``vgg16_fc7`` / ``images_to_fc7`` at an encoder batch; each replay's
+   launches (42 LSTM, 21 top-k a search, 13 conv an encoder batch); bf16
+   eager against graphed at 1x64, 1x256 and 16x256 in turns (host wall,
+   host enqueue and device time per call), each shape's first (eager) and
+   capturing calls' seconds and the memory its capture kept reserved, and
+   that memory freed with its module.  Phase 14 also holds that no graph is
+   captured after the service's warm-up, phase 16 that each shard's
+   stream replays graphs of its own, and the run that no graph of phases
+   5-9 is alive when training starts.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
@@ -177,6 +196,7 @@ no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -365,6 +385,19 @@ MESH_TOL = 1e-5
 #  are held at MESH_TOL
 MESH_CNN_TOL = 1e-4
 RESULTS: dict = {}                  # figures a later phase prints beside
+
+# one-program dispatch (phase 17): every search and encoder batch on the
+# card is one CUDA graph replay; held bit-equal to the eager kernel path
+# at these beam-3 (groups, images) shapes, greedy at 256 images, a table
+# search of 256 ids and an encoder batch, in bf16 and f32; the searches
+# timed eager against graphed at GRAPH_TIMED, each with the calls below
+GRAPH_SHAPES = ((1, 64), (4, 64), (1, 256), (16, 256))
+GRAPH_TIMED = ((1, 64), (1, 256), (16, 256))
+GRAPH_CALLS = {64: 20, 256: 20, 4096: 6}
+GRAPH_ROWS = 256
+#  what the card may keep reserved once a module and its graphs are gone:
+#  cuBLAS's workspace for a stream new to it (32 MiB on Hopper), twice
+GRAPH_KEPT_MB = 64
 
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
@@ -981,7 +1014,7 @@ def phase_throughput(decoder_path: str, feats: torch.Tensor, smi: str
     batch = rows.view(groups, DECODE_BATCH, -1).cuda().to(torch.bfloat16)
     run = lambda: beam_search_grouped(decoder, batch, beam_width=BEAM,
                                       max_words=MAX_WORDS)
-    run()
+    run(), run()                # eagerly, then captured
     torch.cuda.synchronize()
     iters = 3
     reset_counts(fused_lstm_step, topk_logsumexp)
@@ -1302,7 +1335,7 @@ def phase_fc7_throughput(rng, smi: str) -> float:
         groups = FC7_GROUPS if use_kernels else FC7_PLAIN_GROUPS
         run = lambda: normalize_and_fc7(vgg, images[:groups], avg,
                                         use_kernels)
-        run().sum().item()          # warm up
+        run(), run().sum().item()   # warm up: eagerly, then captured
         iters = 2
         reset_counts(fused_conv3x3_relu)
         t0 = time.perf_counter()
@@ -2759,26 +2792,32 @@ def run_loadgen(exe: str, port: int, conns: int, seconds: float,
 
 @contextmanager
 def counted_searches(searches: list, encodes: list):
-    """Append each beam search's LSTM rows to ``searches`` and each
-    encoder batch's size to ``encodes``, whichever thread runs them."""
-    from lrcn_tpu_torch.decode import beam
+    """Append the LSTM rows of each beam search the service runs (by
+    feature rows or by table rows) to ``searches`` and each encoder
+    batch's size to ``encodes``, whichever thread runs them: the service's
+    own entry points, each one graph replay on the card."""
     from lrcn_tpu_torch.serve import service
 
-    real_search, real_fc7 = beam.beam_search, service.vgg16_fc7
+    real = (service.search, service.rows_search, service.images_to_fc7)
 
     def search(decoder, feats, **kwargs):
         searches.append(feats.shape[0] * kwargs["beam_width"])
-        return real_search(decoder, feats, **kwargs)
+        return real[0](decoder, feats, **kwargs)
 
-    def fc7(vgg, pixels, *args):
+    def rows_search(decoder, table, idx, **kwargs):
+        searches.append(idx.numel() * kwargs["beam_width"])
+        return real[1](decoder, table, idx, **kwargs)
+
+    def images_to_fc7(vgg, pixels, *args, **kwargs):
         encodes.append(pixels.shape[0])
-        return real_fc7(vgg, pixels, *args)
+        return real[2](vgg, pixels, *args, **kwargs)
 
-    beam.beam_search, service.vgg16_fc7 = search, fc7
+    service.search, service.rows_search, service.images_to_fc7 = (
+        search, rows_search, images_to_fc7)
     try:
         yield
     finally:
-        beam.beam_search, service.vgg16_fc7 = real_search, real_fc7
+        service.search, service.rows_search, service.images_to_fc7 = real
 
 
 def stall_cycles(ms: float) -> int:
@@ -2858,6 +2897,7 @@ def phase_native(smi: str, tree: dict) -> dict[str, int]:
     from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
                                             fused_lstm_step, topk_logsumexp)
     from lrcn_tpu_torch.serve import native_frontend
+    from lrcn_tpu_torch.utils import graphs
     from lrcn_tpu_torch.utils.profiling import device_time_ms, trace
 
     work = os.path.join(WORK, "native")
@@ -2880,11 +2920,20 @@ def phase_native(smi: str, tree: dict) -> dict[str, int]:
         os.path.join(work, "store"), "--generate", str(MAX_WORDS), "--host",
         "127.0.0.1", "--port", "0"])
     service = cli.make_caption_service(args)
+    captures = graphs.stats["captures"]
+    t0 = time.perf_counter()
     service.warmup()
+    warmup_s = time.perf_counter() - t0
     frontend = native_frontend(
         service, host=args.host, port=args.port, n_threads=NATIVE_THREADS,
         max_queue=args.max_queue or 4096, feat_wait_ms=args.feat_wait_ms)
     port = frontend.port
+    # every shape the service runs is a graph captured by now
+    captured = [g for m in (service.decoder, service.vgg)
+                for g in graphs.graphs(m)]
+    check(len(captured) == graphs.stats["captures"] - captures,
+          "phase 14's service captured graphs outside its modules")
+    captures, replays = graphs.stats["captures"], graphs.stats["replays"]
     cycles = stall_cycles(NATIVE_STALL_MS)
     waits = check_no_device_wait(service, cycles)
     print(f"[14 native] waited {build_s:.1f} s for httpserve and loadgen; "
@@ -3087,6 +3136,13 @@ def phase_native(smi: str, tree: dict) -> dict[str, int]:
         stop_s = time.perf_counter() - t0
         service.close()
     mark("answers")
+    new_captures = graphs.stats["captures"] - captures
+    check(new_captures == 0, f"{new_captures} graphs captured after the "
+                             f"service's warm-up")
+    print(f"[14 native] graphs: {len(captured)} captured at warm-up "
+          f"(keys {sorted({g.key for g in captured})}; the warm-up took "
+          f"{warmup_s:.2f} s), none after it; {graphs.stats['replays'] - replays} replays served "
+          f"the loads and checks")
     check(not (frontend._pump.is_alive() or frontend._responder.is_alive()
                or frontend._img_thread.is_alive()),
           f"frontend threads alive after stop() ({stop_s:.1f} s)")
@@ -3832,13 +3888,15 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
     from lrcn_tpu_torch.data.feature_store import FeatureStore
     from lrcn_tpu_torch.decode.beam import beam_search
     from lrcn_tpu_torch.decode.writer import detokenize_batch
-    from lrcn_tpu_torch.models.vgg import CONV_NAMES
+    from lrcn_tpu_torch.data.images import normalize_batch
+    from lrcn_tpu_torch.models.vgg import CONV_NAMES, vgg16_fc7
     from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
                                             fused_lstm_step, topk_logsumexp)
     from lrcn_tpu_torch.parallel import make_mesh
     from lrcn_tpu_torch.parallel.decode import sharded_beam_search
     from lrcn_tpu_torch.serve import CaptionService, make_server
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+    from lrcn_tpu_torch.utils import graphs
 
     t0 = time.perf_counter()
     fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
@@ -3869,6 +3927,9 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
 
     # the main path: every count starts at 0 here
     searches, encodes = [], []
+    modules = {"decoder": svc._decoders[0], "encoder": svc._vggs[0]}
+    replays = {id(g): g.replays for m in modules.values()
+               for g in graphs.graphs(m)}
     reset_counts(*fns)
     t1 = time.perf_counter()
     with counted_searches(searches, encodes):
@@ -3878,6 +3939,17 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
     launches = read_counts(*fns)
     used = {fn.__name__: _routes_used(fn) for fn in fns}
     svc.close()
+    # the two shards share the card's one replica of each module; each
+    # shard's stream replays graphs of its own
+    check(all(m is svc._decoders[1] or m is svc._vggs[1]
+              for m in modules.values()), "a replica per shard on one card")
+    shard_streams = {s.cuda_stream for s in svc._shards.streams}
+    replayed = {name: {g.stream for g in graphs.graphs(m)
+                       if g.replays > replays.get(id(g), 0)}
+                for name, m in modules.items()}
+    check(all(r == shard_streams for r in replayed.values()),
+          f"mesh service: graphs replayed on streams {replayed}, want each "
+          f"module's on both shards' streams {shard_streams}")
     for (kind, items), lines in zip(requests, answers):
         check(len(lines) == len(items) and all(
             isinstance(x, str) and x.endswith(" .") for x in lines),
@@ -3915,7 +3987,10 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
           f"{len(encodes) // MESH_SHARDS} encoder batches, each as "
           f"{MESH_SHARDS} shards (shard searches of "
           f"{sorted(set(searches))} rows); launches {launches}, by route "
-          f"{used}")
+          f"{used}; graphs replayed on each shard's own stream: " + ", ".join(
+              f"{name} {sum(g.stream == st for g in graphs.graphs(m))} "
+              f"graphs a shard" for name, m in modules.items()
+              for st in sorted(shard_streams)[:1]))
 
     # the sharded search against one-device searches, bf16 and f32: of
     # each shard's rows (the same products: token for token, score for
@@ -3975,19 +4050,21 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
         f32[name] = {"ids": s32.caption_ids(ids[:MESH_F32_IDS]),
                      "features": s32.caption_features(list(raw)),
                      "images": s32.caption_images(images)}
-        # fc7 through the service's own encoder path, before its L1
-        # normalization (held) and after it (printed): fc7 has no ReLU,
-        # so the normalization divides by a signed row sum, which
-        # magnifies the products' rounding some hundred times
-        norm = service_mod.l1_normalize_device
+        # fc7 through the service's own encoder path (its shard streams
+        # and modules), before its L1 normalization (held) and after it
+        # (printed): fc7 has no ReLU, so the normalization divides by a
+        # signed row sum, which magnifies the products' rounding some
+        # hundred times
+        encode = service_mod.images_to_fc7
         fc7[name] = {}
-        for label, fn in (("raw", lambda f: f), ("l1", norm)):
-            service_mod.l1_normalize_device = fn
+        for label, fn in (("raw", lambda vgg, px, avg: vgg16_fc7(
+                vgg, normalize_batch(px, avg))), ("l1", encode)):
+            service_mod.images_to_fc7 = fn
             try:
                 fc7[name][label] = np.stack(s32._encode_finalize(
                     s32._encode_fn(images[:ENCODE_BATCH])))
             finally:
-                service_mod.l1_normalize_device = norm
+                service_mod.images_to_fc7 = encode
         s32.close()
     fc7_err = {label: float(np.abs(fc7["mesh"][label] - want).max()
                             / np.abs(want).max())
@@ -4012,7 +4089,7 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
             dec16, burst, beam_width=BEAM, max_words=MAX_WORDS)),
             (f"{MESH_SHARDS} shards", lambda: sharded_beam_search(
                 dec16, burst, mesh, beam_width=BEAM, max_words=MAX_WORDS))):
-        run()
+        run(), run()            # eagerly, then captured
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for _ in range(3):
@@ -4075,6 +4152,236 @@ def phase_mesh(smi: str, rng) -> dict[str, int]:
     return launches
 
 
+def graph_wall_ms(fn, calls: int) -> tuple[float, float]:
+    """Median host wall per call, the call's result on the card
+    (synchronized), and median host time to enqueue the call."""
+    walls, enqueues = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        enqueues.append(t1 - t0)
+    return statistics.median(walls) * 1e3, statistics.median(enqueues) * 1e3
+
+
+def live_graphs() -> int:
+    """The graphs that the modules alive in this process hold."""
+    from lrcn_tpu_torch.utils.graphs import GraphCache
+
+    gc.collect()
+    return sum(len(o.graphs) for o in gc.get_objects()
+               if isinstance(o, GraphCache))
+
+
+def phase_graphs(smi: str, rng) -> dict[str, int]:
+    """Phase 17: one-program dispatch.  At the reference width, bf16 and
+    f32 (TF32 off), every graphed entry point against its eager body on
+    the kernel path: each runs eagerly at its first call and captures at
+    its second, on inputs A, then replays on inputs B, held against the
+    eager body on B: beam-3 searches at GRAPH_SHAPES (tokens and scores
+    bit-equal), greedy and a table search at GRAPH_ROWS, the encoder at
+    an encoder batch (fc7 rows bit-equal, raw and L1-normalized), each
+    replay's launches (42 LSTM and 21 top-k a search, 13 conv an encoder
+    batch); then, bf16, each of GRAPH_TIMED eager against graphed in
+    turns (host wall, host enqueue, device time per call), its first and
+    capturing calls' seconds, the memory the capture kept reserved, and
+    that memory freed with its module.  Returns the launches of the
+    checks' replays."""
+    import copy
+
+    from lrcn_tpu_torch.data.images import images_to_fc7, normalize_batch
+    from lrcn_tpu_torch.decode import beam
+    from lrcn_tpu_torch.models.lrcn import params_from_numpy
+    from lrcn_tpu_torch.models.vgg import (vgg16_fc7, vgg16_fc7_fn,
+                                          vgg_params_from_numpy)
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    steps = MAX_WORDS + 1
+    tree, vgg_tree = random_tree(rng), random_vgg(rng)
+    raw = np.abs(rng.standard_normal((2048, CNN_DIM), dtype=np.float32))
+    rows = raw / raw.sum(axis=1, keepdims=True)
+    pixels = [torch.from_numpy(rng.integers(
+        0, 256, (ENCODE_BATCH, 224, 224, 3), np.uint8)).cuda()
+        for _ in range(2)]
+    avg = torch.full((224, 224, 3), JOINT_MEAN, device="cuda")
+    ids = [torch.from_numpy(rng.choice(len(rows), GRAPH_ROWS,
+                                       replace=False)).cuda()
+           for _ in range(2)]
+    replay_counts = dict.fromkeys(read_counts(*fns), 0)
+
+    def feats_of(n: int, which: int) -> torch.Tensor:
+        """n rows of the table, set A (0) or B (1), on the card."""
+        return torch.from_numpy(rows[(np.arange(n) + which * 1000)
+                                     % len(rows)]).cuda()
+
+    def graphed(call, a, b, want: dict, label: str):
+        """``call(a)`` eagerly, ``call(a)`` captured, then ``call(b)``
+        replayed, its launches held to ``want``; returns the last."""
+        call(a)
+        call(a)
+        reset_counts(*fns)
+        out = call(b)
+        got = read_counts(*fns)
+        check(got == want, f"{label}: one replay launched {got}, want "
+                           f"{want}")
+        for name, n in got.items():
+            replay_counts[name] += n
+        return out
+
+    def eager(fn, *args, **kwargs):
+        with torch.inference_mode():
+            return fn(*args, **kwargs)
+
+    search_launches = {"fused_conv3x3_relu": 0,
+                       "fused_lstm_step": 2 * steps, "topk_logsumexp": steps}
+    conv_launches = {"fused_conv3x3_relu": 13, "fused_lstm_step": 0,
+                     "topk_logsumexp": 0}
+    held = []
+    for dtype in (torch.bfloat16, torch.float32):
+        label = str(dtype).replace("torch.", "")
+        dec = params_from_numpy(tree, "cuda", dtype)
+        table = torch.from_numpy(rows).cuda().to(dtype)
+        captures = graphs.stats["captures"]
+        for groups, batch in GRAPH_SHAPES:
+            n = groups * batch
+            if groups == 1:
+                call = lambda f: beam.beam_search(
+                    dec, f, beam_width=BEAM, max_words=MAX_WORDS)
+            else:
+                call = lambda f: tuple(t.reshape(n, *t.shape[2:]) for t in
+                                       beam.beam_search_grouped(
+                                           dec, f.view(groups, batch, -1),
+                                           beam_width=BEAM,
+                                           max_words=MAX_WORDS))
+            b = feats_of(n, 1)
+            tok_g, sc_g = graphed(call, feats_of(n, 0), b, search_launches,
+                                  f"{label} {groups}x{batch}")
+            tok_e, sc_e = eager(beam.beam_search_fn, dec, b,
+                                beam_width=BEAM, max_words=MAX_WORDS)
+            check(torch.equal(tok_g, tok_e) and torch.equal(sc_g, sc_e),
+                  f"{label} {groups}x{batch} beam-{BEAM}: the graphed "
+                  f"search's tokens or scores differ from the eager "
+                  f"kernel path's")
+            held.append(f"{groups}x{batch}")
+        b = feats_of(GRAPH_ROWS, 1)
+        tok_g, sc_g = graphed(
+            lambda f: beam.greedy_search(dec, f, max_words=MAX_WORDS),
+            feats_of(GRAPH_ROWS, 0), b, search_launches, f"{label} greedy")
+        tok_e, sc_e = eager(beam.greedy_search_fn, dec, b,
+                            max_words=MAX_WORDS)
+        check(torch.equal(tok_g, tok_e) and torch.equal(sc_g, sc_e),
+              f"{label} greedy at {GRAPH_ROWS}: graphed differs from eager")
+        tok_g, sc_g = graphed(
+            lambda i: beam.rows_search(dec, table, i, beam_width=BEAM,
+                                       max_words=MAX_WORDS),
+            ids[0], ids[1], search_launches, f"{label} rows")
+        tok_e, sc_e = eager(beam._rows_search_fn, dec, table, ids[1],
+                            beam_width=BEAM, max_words=MAX_WORDS)
+        check(torch.equal(tok_g, tok_e) and torch.equal(sc_g, sc_e),
+              f"{label} rows_search of {GRAPH_ROWS} ids: graphed differs "
+              f"from eager")
+        enc = vgg_params_from_numpy(vgg_tree, "cuda", dtype)
+        images = [normalize_batch(p, avg) for p in pixels]
+        fc7_g = graphed(lambda x: vgg16_fc7(enc, x), *images, conv_launches,
+                        f"{label} vgg16_fc7")
+        fc7_e = vgg16_fc7_fn(enc, images[1])
+        check(torch.equal(fc7_g, fc7_e), f"{label} vgg16_fc7 at "
+                                         f"B={ENCODE_BATCH}: graphed fc7 "
+                                         f"differs from eager")
+        l1_g = graphed(lambda p: images_to_fc7(enc, p, avg), *pixels,
+                       conv_launches, f"{label} images_to_fc7")
+        check(torch.equal(l1_g, fc7_e / fc7_e.sum(-1, keepdim=True)),
+              f"{label} images_to_fc7: graphed differs from eager")
+        torch.cuda.synchronize()
+        made = graphs.stats["captures"] - captures
+        print(f"[17 graphs] {label}: graphed = eager kernel path, tokens "
+              f"and scores bit-equal, beam-{BEAM} at "
+              f"{', '.join(held[-len(GRAPH_SHAPES):])} images, greedy and "
+              f"rows_search at {GRAPH_ROWS}; fc7 rows bit-equal at "
+              f"B={ENCODE_BATCH} (vgg16_fc7, images_to_fc7); each replayed "
+              f"on inputs other than its capture's; {made} graphs "
+              f"captured; each replay launched {2 * steps} LSTM + {steps} "
+              f"top-k a search, 13 conv an encoder batch")
+        del dec, enc, table
+
+    # eager against graphed, bf16, each shape on a module of its own (its
+    # graph pool alone), in turns: eager, graphed, graphed, eager
+    dec = params_from_numpy(tree, "cuda", torch.bfloat16)
+    timings = {}
+    for groups, batch in GRAPH_TIMED:
+        n = groups * batch
+        calls = GRAPH_CALLS[n]
+        feats = feats_of(n, 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base, alive = torch.cuda.memory_reserved(), live_graphs()
+        own = copy.deepcopy(dec)
+        runs = {
+            "eager": lambda: eager(beam.beam_search_fn, own, feats,
+                                   beam_width=BEAM, max_words=MAX_WORDS),
+            "graphed": lambda: beam.beam_search(own, feats, beam_width=BEAM,
+                                                max_words=MAX_WORDS)}
+        seconds = []                # the first call (eager), the capture
+        for _ in range(2):
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved()
+            t1 = time.perf_counter()
+            runs["graphed"]()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t1)
+        torch.cuda.empty_cache()
+        kept = torch.cuda.memory_reserved() - before
+        check(len(graphs.graphs(own)) == 1, f"{groups}x{batch}: "
+              f"{len(graphs.graphs(own))} graphs after two calls")
+        walls = {k: [] for k in runs}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            walls[name].append(graph_wall_ms(runs[name], calls // 2 or 1))
+        r = {name: {"wall_ms": statistics.median(w for w, _ in walls[name]),
+                    "enqueue_ms": statistics.median(e for _, e in
+                                                    walls[name]),
+                    "device_ms": device_ms(fn, max(2, calls // 2),
+                                           one_kernel=False)}
+             for name, fn in runs.items()}
+        r["first_call_s"], r["capture_call_s"] = seconds
+        r["capture_kept_mb"] = kept / 2 ** 20
+        timings[f"{groups}x{batch}"] = r
+        del own, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        freed = torch.cuda.memory_reserved() - base
+        r["reserved_after_drop_mb"] = freed / 2 ** 20
+        check(live_graphs() == alive and freed <= GRAPH_KEPT_MB * 2 ** 20,
+              f"{live_graphs() - alive} graphs alive and {freed / 2 ** 20} "
+              f"MB more reserved after their module was dropped")
+        print(f"[17 graphs] bf16 beam-{BEAM} {groups}x{batch} ({n} images,"
+              f" {calls // 2 * 2} calls each) on {smi}: eager wall "
+              f"{r['eager']['wall_ms']:.3f} ms (enqueue "
+              f"{r['eager']['enqueue_ms']:.3f} ms), device "
+              f"{r['eager']['device_ms']:.3f} ms; graphed wall "
+              f"{r['graphed']['wall_ms']:.3f} ms (enqueue "
+              f"{r['graphed']['enqueue_ms']:.3f} ms), device "
+              f"{r['graphed']['device_ms']:.3f} ms; wall ratio eager / "
+              f"graphed {r['eager']['wall_ms'] / r['graphed']['wall_ms']:.2f}"
+              f"; first call (eager) {seconds[0]:.3f} s, second call "
+              f"(warm-up, capture, replay) {seconds[1]:.3f} s, reserved "
+              f"by the capture (graph pool and the graph stream's cuBLAS "
+              f"workspace) {r['capture_kept_mb']:.1f} MB; reserved after "
+              f"the module was dropped {freed / 2 ** 20:+.1f} MB against "
+              f"before")
+    del dec
+    RESULTS["graphs"] = timings
+    print(f"[17 graphs] seconds: {time.perf_counter() - t0:.1f}")
+    print(json.dumps({"graph_timings": timings}))
+    return replay_counts
+
+
 @torch.inference_mode()
 def path_score_error(decoder, feats, tokens, scores) -> float:
     """How far each row's search score lies from the plain decode step's
@@ -4125,11 +4432,12 @@ PROFILE_GROUPS = [
 
 
 def profile_window(label: str, run) -> None:
-    """Profile one call of ``run`` (after a warm-up): wall time, device
-    kernel time, idle share of the wall, and kernel time by group."""
+    """Profile one call of ``run`` (after two warm-up calls, the second
+    of which captures a graphed path): wall time, device kernel time,
+    idle share of the wall, and kernel time by group."""
     from torch.profiler import ProfilerActivity, profile
 
-    run()
+    run(), run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4252,6 +4560,9 @@ def main() -> None:
         print(json.dumps(phase_export(smi)))
         shutil.rmtree(WORK, ignore_errors=True)
         return
+    if sys.argv[1:] == ["--graphs"]:
+        print(json.dumps(phase_graphs(smi, rng)))
+        return
     if sys.argv[1:] == ["--mesh"]:
         tree = random_tree(rng)
         shutil.rmtree(WORK, ignore_errors=True)
@@ -4288,6 +4599,17 @@ def main() -> None:
     lap("8")
     phase_fc7_throughput(rng, smi)
     lap("9")
+    # the serving phases' modules, and their graphs' pools, are gone
+    # before training takes the card's memory
+    from lrcn_tpu_torch.utils import graphs
+    torch.cuda.empty_cache()
+    alive = live_graphs()
+    check(alive == 0, f"{alive} graphs of phases 5-9 alive before "
+                      f"training")
+    print(f"[9 fc7 throughput] {graphs.stats['captures']} graphs captured "
+          f"and {graphs.stats['replays']} replayed in phases 5-9, none "
+          f"alive now; {torch.cuda.memory_reserved() / 2 ** 20:.0f} MB "
+          f"reserved")
     by_path["training (phase 10)"] = phase_train(smi)
     lap("10")
     sampling = phase_sample(smi)
@@ -4306,6 +4628,8 @@ def main() -> None:
     lap("15")
     by_path["mesh_serve (phase 16)"] = phase_mesh(smi, rng)
     lap("16")
+    by_path["graph replays (phase 17)"] = phase_graphs(smi, rng)
+    lap("17")
     print("[time] seconds by phase: " + ", ".join(
         f"{label} {t - laps[i][1]:.1f}"
         for i, (label, t) in enumerate(laps[1:])))

@@ -35,8 +35,10 @@ def l1_normalize(feats: np.ndarray) -> np.ndarray:
 
     The reference's generation path normalizes live CNN features by their
     sum (``input/sum(input)``, lrcn.jl:597) and its precomputed feature
-    files (``featsn.jld``) are stored already normalized.  fc7 is
-    post-ReLU so the sum is the L1 norm.
+    files (``featsn.jld``) are stored already normalized.  fc7 is taken
+    before relu7 (lrcn.jl:717), so a row may hold negative entries: the
+    divisor is the row's signed sum, not its L1 norm.  A row that sums to
+    0 is left as it is.
     """
     sums = feats.sum(axis=-1, keepdims=True)
     return feats / np.where(sums == 0, 1.0, sums)

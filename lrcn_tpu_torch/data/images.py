@@ -16,11 +16,16 @@ inside the functions that use it, so importing this module needs no PIL.
 Device half: uint8 -> float32, minus the mean image (lrcn.jl:771), then
 VGG-16 to fc7, over groups of batches with one upload and one readback
 per group (``normalize_and_fc7``, the counterpart of
-``_normalize_and_fc7_scan``).  Images stay (H, W, 3) NHWC end to end.
+``_normalize_and_fc7_scan``), and the service's encoder batch
+(``images_to_fc7``: normalize, fc7, L1-normalize).  On a card each call
+of either, from the second of a shape on, is one replay of the CUDA
+graph captured for that shape (``utils/graphs.py``), as JAX jits both.  Images stay (H, W, 3) NHWC end
+to end.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import tempfile
 import urllib.request
@@ -31,7 +36,9 @@ import torch
 
 from lrcn_tpu_torch import require_cuda
 from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
-from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7
+from lrcn_tpu_torch.models import vgg
+from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7_fn
+from lrcn_tpu_torch.utils import graphs
 
 CROP = 224
 
@@ -214,12 +221,40 @@ def normalize_and_fc7(encoder: VGGEncoder, images_u8: torch.Tensor,
 
     The 255-scale/mean-subtract preprocessing (lrcn.jl:771) runs on the
     device batch by batch, and the K batches go back to back with no host
-    sync: the caller uploads once and reads back once per K*B images.
+    sync: the caller uploads once and reads back once per K*B images.  On
+    a card with ``use_kernels`` the K batches are one graph replay.
     """
-    return torch.stack([vgg16_fc7(encoder,
-                                  normalize_batch(batch, average_image),
-                                  use_kernels)
+    body = functools.partial(_normalize_and_fc7_fn, encoder,
+                             use_kernels=use_kernels)
+    return graphs.run(encoder, ("normalize_fc7",), body,
+                      (images_u8, average_image), graph=use_kernels)
+
+
+def _normalize_and_fc7_fn(encoder: VGGEncoder, images_u8: torch.Tensor,
+                          average_image: torch.Tensor,
+                          use_kernels: bool = True) -> torch.Tensor:
+    return torch.stack([vgg16_fc7_fn(encoder,
+                                     normalize_batch(batch, average_image),
+                                     use_kernels)
                         for batch in images_u8])
+
+
+def images_to_fc7(encoder: VGGEncoder, images_u8: torch.Tensor,
+                  average_image: torch.Tensor) -> torch.Tensor:
+    """(B, 224, 224, 3) uint8 -> (B, F7) L1-normalized fc7 rows: the
+    service's encoder batch, exactly the reference's live path
+    (``normalize_batch``, VGG-16 to fc7, ``input/sum(input)``,
+    lrcn.jl:597), on the encoder's device.  On a card, one graph replay.
+    """
+    return graphs.run(encoder, ("images_fc7",),
+                      functools.partial(_images_to_fc7_fn, encoder),
+                      (images_u8, average_image))
+
+
+def _images_to_fc7_fn(encoder: VGGEncoder, images_u8: torch.Tensor,
+                      average_image: torch.Tensor) -> torch.Tensor:
+    return vgg.l1_normalize(vgg16_fc7_fn(
+        encoder, normalize_batch(images_u8, average_image)))
 
 
 def extract_features(

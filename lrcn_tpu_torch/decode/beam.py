@@ -24,9 +24,20 @@ Reference semantics kept exactly, as in the JAX package:
 
 Rows are independent, so the grouped variants decode all G·B rows of a
 (G, B, D) group in one search.
+
+On a card every search is one program, as ``jax.jit`` makes each search
+of the JAX package one: ``beam_search``, ``greedy_search`` and
+``rows_search`` (and so ``search`` and the grouped variants) capture
+their eager body into a CUDA graph at the second call of a shape (the
+first runs eagerly) and replay it from then on (``utils/graphs.py``), one launch a search instead
+of some 30 a step.  ``beam_search_fn`` and ``greedy_search_fn`` stay the
+eager bodies: what ``torch.export`` traces and what the graphs capture.
+On CPU tensors the bodies run eagerly.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,6 +46,7 @@ from lrcn_tpu_torch.models import lrcn
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder, LSTMState
 from lrcn_tpu_torch.ops.kernels import (topk_logsumexp,
                                         topk_logsumexp_reference)
+from lrcn_tpu_torch.utils import graphs
 
 NEG_INF = -1e30
 
@@ -57,7 +69,8 @@ def beam_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
                 use_kernels: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Beam search over a batch of fc7 rows (:func:`beam_search_fn` under
-    ``torch.inference_mode``).
+    ``torch.inference_mode``; on a card with ``use_kernels``, one replay
+    of the graph captured for this shape).
 
     Args:
       decoder: the decoder, on the device of ``feats``.
@@ -74,8 +87,10 @@ def beam_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
       scores: (B,) float32 cumulative log-probability of the best
         hypothesis.
     """
-    return beam_search_fn(decoder, feats, beam_width=beam_width,
-                          max_words=max_words, use_kernels=use_kernels)
+    body = functools.partial(beam_search_fn, decoder, beam_width=beam_width,
+                             max_words=max_words, use_kernels=use_kernels)
+    return graphs.run(decoder, ("beam", beam_width, max_words), body,
+                      (feats,), graph=use_kernels)
 
 
 def beam_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
@@ -89,7 +104,8 @@ def beam_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
     topk = topk_logsumexp if use_kernels else topk_logsumexp_reference
 
     cnn_proj = lrcn.cnn_projection(decoder, feats)                # (B, F)
-    cnn_flat = cnn_proj.repeat_interleave(k, dim=0)              # (B*K, F)
+    # each row's projection k times (repeat_interleave without its sizes)
+    cnn_flat = cnn_proj[:, None].expand(-1, k, -1).reshape(b_dim * k, -1)
 
     # all hypotheses are identical at step 0: only beam 0 may expand
     scores = torch.full((b_dim, k), NEG_INF, dtype=torch.float32,
@@ -142,8 +158,9 @@ def greedy_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
     """Batched greedy (argmax) decoding: beam search with K=1 semantics,
     through the top-k kernel at k=1.  Same return contract as
     :func:`beam_search`; :func:`greedy_search_fn` under
-    ``torch.inference_mode``."""
-    return greedy_search_fn(decoder, feats, max_words=max_words)
+    ``torch.inference_mode``, on a card one graph replay."""
+    body = functools.partial(greedy_search_fn, decoder, max_words=max_words)
+    return graphs.run(decoder, ("greedy", max_words), body, (feats,))
 
 
 def greedy_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
@@ -176,11 +193,22 @@ def greedy_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
 
 def search(decoder: LRCNDecoder, feats: torch.Tensor, *, beam_width: int,
            max_words: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Greedy for ``beam_width == 1``, else beam search."""
+    """Greedy for ``beam_width == 1``, else beam search
+    (:func:`search_fn`; on a card one graph replay)."""
+    body = functools.partial(search_fn, decoder, beam_width=beam_width,
+                             max_words=max_words)
+    return graphs.run(decoder, ("search", beam_width, max_words), body,
+                      (feats,))
+
+
+def search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
+              beam_width: int, max_words: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The eager body of :func:`search`."""
     if beam_width == 1:
-        return greedy_search(decoder, feats, max_words=max_words)
-    return beam_search(decoder, feats, beam_width=beam_width,
-                       max_words=max_words)
+        return greedy_search_fn(decoder, feats, max_words=max_words)
+    return beam_search_fn(decoder, feats, beam_width=beam_width,
+                          max_words=max_words)
 
 
 def _grouped(fn, decoder, feats: torch.Tensor, **kwargs):
@@ -206,6 +234,15 @@ def greedy_search_grouped(decoder: LRCNDecoder, feats: torch.Tensor, *,
     return _grouped(greedy_search, decoder, feats, max_words=max_words)
 
 
+def _rows_search_fn(decoder: LRCNDecoder, table: torch.Tensor,
+                    idx: torch.Tensor, *, beam_width: int, max_words: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    tokens, scores = search_fn(decoder, table[idx.reshape(-1)],
+                               beam_width=beam_width, max_words=max_words)
+    return tokens.view(*idx.shape, -1), scores.view(idx.shape)
+
+
+@torch.inference_mode()
 def rows_search(decoder: LRCNDecoder, table: torch.Tensor,
                 idx: torch.Tensor, *, beam_width: int, max_words: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -215,10 +252,10 @@ def rows_search(decoder: LRCNDecoder, table: torch.Tensor,
     result has the shape of ``idx`` plus the token axis, so a (G, B) group
     is one search (the counterpart of both ``rows_search`` and
     ``rows_search_scan``).  The gather is exact, so this equals searching
-    the gathered rows.
+    the gathered rows.  On a card the gather and the search are one graph,
+    which reads the table in place: a new table captures anew.
     """
-    feats = table[idx.reshape(-1)]
-    tokens, scores = search(decoder, feats, beam_width=beam_width,
-                            max_words=max_words)
-    return tokens.view(*idx.shape, -1), scores.view(idx.shape)
-
+    body = functools.partial(_rows_search_fn, decoder, table,
+                             beam_width=beam_width, max_words=max_words)
+    return graphs.run(decoder, ("rows", beam_width, max_words), body,
+                      (idx,), reads=(table,))

@@ -61,7 +61,11 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     ``scan_depth`` batches decode as one search; up to ``max_inflight``
     searches are queued on the device before the oldest one's tokens are
     fetched, so the host enqueues the next group while the device works
-    (more in flight holds more device memory).
+    (more in flight holds more device memory).  Every group is padded to
+    one shape, so on a card the run searches its first group eagerly,
+    captures one search graph at the second and replays it for the rest;
+    each replay returns tokens of their own, which the next one does not
+    overwrite.
 
     ``resident_store``: upload the whole feature table to ``device`` once
     and gather rows there by index; by default when the run decodes at

@@ -106,10 +106,10 @@ class _ImagePipeline(torch.nn.Module):
     def forward(self, pixels_u8):
         from lrcn_tpu_torch.data.images import normalize_batch
         from lrcn_tpu_torch.decode.beam import beam_search_fn
-        from lrcn_tpu_torch.models.vgg import l1_normalize, vgg16_fc7
+        from lrcn_tpu_torch.models.vgg import l1_normalize, vgg16_fc7_fn
 
-        feats = vgg16_fc7(self.vgg, normalize_batch(pixels_u8,
-                                                    self.average_image))
+        feats = vgg16_fc7_fn(self.vgg, normalize_batch(pixels_u8,
+                                                       self.average_image))
         return beam_search_fn(self.decoder, l1_normalize(feats),
                               beam_width=self.beam_width,
                               max_words=self.max_words)

@@ -14,7 +14,11 @@ conv + bias + ReLU CUDA kernel (``ops/kernels/conv3x3.py``); the pools and
 fc6/fc7 are plain ``torch`` ops, as the JAX package leaves them to XLA.
 fc6 is held as a ``(7*7*C, 4096)`` matrix, the NHWC flatten of its
 ``(7, 7, C, 4096)`` filters, which is the JAX einsum
-``bhwc,hwcf->bf`` (``vgg.py:144-147``) as one matmul.
+``bhwc,hwcf->bf`` (``vgg.py:144-147``) as one matmul.  On a card,
+``vgg16_fc7`` and ``vgg16_fc7_grouped`` run each call, from the second
+of a shape on, as one replay of the CUDA graph captured for that shape
+(``utils/graphs.py``), as JAX jits ``vgg16_fc7`` and ``vgg16_fc7_scan``;
+``vgg16_fc7_fn`` is the eager body.
 
 Training (the joint fine-tune, ``models/joint.py``): ``VGGParams`` holds
 the same weights as float32 ``nn.Parameter``s under the checkpoint keys
@@ -35,6 +39,7 @@ on the CPU from a ``torch.Generator``.
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -46,6 +51,7 @@ from lrcn_tpu_torch.models.lrcn import flat_tree
 from lrcn_tpu_torch.ops.kernels import (conv3x3_relu_reference,
                                         fused_conv3x3_relu)
 from lrcn_tpu_torch.ops.lstm import matmul
+from lrcn_tpu_torch.utils import graphs
 
 # (name, out_channels) for the 13 conv layers; 'pool' marks 2x2/2 max pools.
 # Mirrors the MatConvNet layer list walked at lrcn.jl:701-718.
@@ -243,8 +249,18 @@ def vgg16_fc7(encoder: VGGEncoder, images: torch.Tensor,
     ``use_kernels=False`` runs every conv through the kernel's plain
     version even on CUDA tensors (the plain path that the kernel is held
     against on the card); the default runs the fused kernel, whose wrapper
-    itself takes the plain version for CPU tensors.
+    itself takes the plain version for CPU tensors, and on a card runs
+    the call as one replay of the graph captured for this shape.
     """
+    return graphs.run(encoder, ("fc7",),
+                      functools.partial(vgg16_fc7_fn, encoder,
+                                        use_kernels=use_kernels),
+                      (images,), graph=use_kernels)
+
+
+def vgg16_fc7_fn(encoder: VGGEncoder, images: torch.Tensor,
+                 use_kernels: bool = True) -> torch.Tensor:
+    """The eager body of :func:`vgg16_fc7`."""
     cd = encoder.compute_dtype
     x = images
     for entry in VGG16_LAYOUT:
@@ -264,9 +280,14 @@ def vgg16_fc7(encoder: VGGEncoder, images: torch.Tensor,
 def vgg16_fc7_grouped(encoder: VGGEncoder, images: torch.Tensor,
                       use_kernels: bool = True) -> torch.Tensor:
     """(K, B, 224, 224, 3) -> (K, B, F7): the counterpart of
-    ``vgg16_fc7_scan``, K batches back to back with no host sync."""
-    return torch.stack([vgg16_fc7(encoder, batch, use_kernels)
-                        for batch in images])
+    ``vgg16_fc7_scan``, K batches back to back with no host sync; on a
+    card one graph replay for all K."""
+    def body(images):
+        return torch.stack([vgg16_fc7_fn(encoder, batch, use_kernels)
+                            for batch in images])
+
+    return graphs.run(encoder, ("fc7_grouped",), body, (images,),
+                      graph=use_kernels)
 
 
 def l1_normalize(feats: torch.Tensor) -> torch.Tensor:

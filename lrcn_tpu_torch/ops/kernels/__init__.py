@@ -3,7 +3,8 @@
 (``lrcn::lstm_step``, ``lrcn::topk_lse``, ``lrcn::conv3x3_relu``), which
 importing this package registers; every wrapper calls its op, keeps its
 plain PyTorch version beside it and counts its launches in
-``<wrapper>.launches``."""
+``<wrapper>.launches`` (``launches.py``: once a call, whether the call
+launched eagerly or replayed a captured CUDA graph)."""
 
 from lrcn_tpu_torch.ops.kernels.conv3x3 import (  # noqa: F401
     conv3x3_relu_reference,

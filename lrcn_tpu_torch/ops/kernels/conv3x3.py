@@ -21,28 +21,26 @@ tiles; conv1_1 has C = 3) and ``"fma"`` (f32).
 The kernel is the ``torch.library`` op ``lrcn::conv3x3_relu``: its CPU
 implementation is the plain version, its CUDA implementation
 (``conv3x3_relu_cuda``) casts x to the compute dtype, picks the route,
-launches and counts the launch in ``fused_conv3x3_relu.launches`` and, per
-route, in ``fused_conv3x3_relu.launches_by_route``; its fake
+launches and counts the launch (``launches.count``) in
+``fused_conv3x3_relu.launches`` and, per route, in
+``fused_conv3x3_relu.launches_by_route`` (a captured CUDA graph counts its
+replays, ``utils/graphs.py``); its fake
 implementation gives the shape, so ``torch.export`` traces the op as one
 node.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 import torch.nn.functional as F
 
 from lrcn_tpu_torch import require_cuda
-from lrcn_tpu_torch.ops.kernels import build
+from lrcn_tpu_torch.ops.kernels import build, launches
 
 # route name -> the int the C entry point takes (csrc/conv3x3.cu:Route)
 ROUTES = {"fma": 0, "scalar": 1, "wgmma": 2}
 # TMA needs 16-byte aligned bases; a wgmma K step is 64 channels deep
 _TMA_ALIGN, _WGMMA_DEPTH = 16, 64
-
-_count_lock = threading.Lock()
 
 
 def conv3x3_relu_reference(x: torch.Tensor, w: torch.Tensor,
@@ -124,9 +122,7 @@ def conv3x3_relu_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             b_dim, h, w_dim, c, f, int(apply_relu), ROUTES[route], stream)
     build.check(status, f"lrcn_conv3x3 ({route})")
-    with _count_lock:
-        fused_conv3x3_relu.launches += 1
-        fused_conv3x3_relu.launches_by_route[route] += 1
+    launches.count(fused_conv3x3_relu, route)
     return y
 
 

@@ -18,29 +18,26 @@ step's shapes), ``"wmma"`` (other bf16 shapes) and ``"fma"`` (f32).
 The kernel is the ``torch.library`` op ``lrcn::lstm_step``: its CPU
 implementation is the plain version, its CUDA implementation
 (``lstm_step_cuda``) checks the operands, picks the route, launches and
-counts the launch in ``fused_lstm_step.launches`` and, per route, in
-``fused_lstm_step.launches_by_route``; its fake implementation gives the
-shapes, so ``torch.export`` traces the op as one node.  The wrapper
+counts the launch (``launches.count``) in ``fused_lstm_step.launches``
+and, per route, in ``fused_lstm_step.launches_by_route`` (a captured CUDA
+graph counts its replays, ``utils/graphs.py``); its fake implementation
+gives the shapes, so ``torch.export`` traces the op as one node.  The wrapper
 ``fused_lstm_step`` calls the op, so the live path and an exported
 program run the same op.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from lrcn_tpu_torch import require_cuda
 from lrcn_tpu_torch.ops import lstm
-from lrcn_tpu_torch.ops.kernels import build
+from lrcn_tpu_torch.ops.kernels import build, launches
 
 # route name -> the int the C entry point takes (csrc/lstm_step.cu:Route)
 ROUTES = {"fma": 0, "wmma": 1, "wgmma": 2}
 # TMA needs 16-byte aligned bases and row strides: 4 f32 per 16 bytes
 _TMA_ALIGN, _TMA_F32_STEP = 16, 4
-
-_count_lock = threading.Lock()
 
 
 def lstm_step_reference(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
@@ -111,9 +108,7 @@ def lstm_step_cuda(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
             x.shape[0], x.shape[1], h.shape[1], ROUTES[route], stream)
     build.check(status, f"lrcn_lstm_step ({route})")
-    with _count_lock:
-        fused_lstm_step.launches += 1
-        fused_lstm_step.launches_by_route[route] += 1
+    launches.count(fused_lstm_step, route)
     return h_out, c_out
 
 

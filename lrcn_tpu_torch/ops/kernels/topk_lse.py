@@ -20,28 +20,26 @@ The kernel is the ``torch.library`` op ``lrcn::topk_lse(logits, k,
 route=None)``, the route an argument of the op: its CPU implementation
 is the plain version, its CUDA implementation (``topk_lse_cuda``)
 launches the kernel on the route asked for (by default
-``topk_lse_route``'s) and counts the launch in ``topk_logsumexp.launches``
-and, per route, in ``topk_logsumexp.launches_by_route``; its fake
+``topk_lse_route``'s) and counts the launch (``launches.count``) in
+``topk_logsumexp.launches`` and, per route, in
+``topk_logsumexp.launches_by_route`` (a captured CUDA graph counts its
+replays, ``utils/graphs.py``); its fake
 implementation gives the shapes, so ``torch.export`` traces the op as one
 node.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from lrcn_tpu_torch import require_cuda
-from lrcn_tpu_torch.ops.kernels import build
+from lrcn_tpu_torch.ops.kernels import build, launches
 
 # route name -> the int the C entry point takes (csrc/topk_lse.cu:Route)
 ROUTES = {"warp": 0, "block": 1, "rounds": 2}
 # the largest k of each register-list route (its template instances);
 # "rounds" takes any k <= V
 MAX_K = {"warp": 8, "block": 16}
-
-_count_lock = threading.Lock()
 
 
 def topk_logsumexp_reference(logits: torch.Tensor, k: int
@@ -104,9 +102,7 @@ def topk_lse_cuda(logits: torch.Tensor, k: int, route: str | None = None
                                    idx.data_ptr(), lse.data_ptr(), r, v, k,
                                    ROUTES[route], stream)
     build.check(status, f"lrcn_topk_lse ({route})")
-    with _count_lock:
-        topk_logsumexp.launches += 1
-        topk_logsumexp.launches_by_route[route] += 1
+    launches.count(topk_logsumexp, route)
     return vals, idx, lse
 
 

@@ -8,7 +8,13 @@ slice runs the whole search on its shard's device, on a CUDA stream of its
 own, so no collective appears in the loop.  Every shard launches the
 fused LSTM kernel twice a step and the top-k kernel once, as a one-device
 search does.  Two shards may sit on one device (a mesh that lists it
-twice): each then runs on its own stream of that device.
+twice): each then runs on its own stream of that device.  On a card each
+shard's search and encoder batch is one CUDA graph replay called from its
+stream: a graph belongs to the stream that calls it (``utils/graphs.py``),
+so two shards that share a device, and so a replica, still replay graphs
+of their own.  The shards' streams are the same for every ``DataShards``
+over a device layout (``shard_stream``), so a graph captured for one
+search replays in the next, as the service's do.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from lrcn_tpu_torch.decode.beam import search
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
 from lrcn_tpu_torch.parallel.mesh import Mesh
+from lrcn_tpu_torch.utils import graphs
 
 
 def replicate(obj, device: torch.device):
@@ -35,18 +42,34 @@ def replicate(obj, device: torch.device):
     return copy.deepcopy(obj).to(device)
 
 
+_streams: dict = {}
+
+
+def shard_stream(device: torch.device, index: int) -> torch.cuda.Stream:
+    """The CUDA stream of data shard ``index`` on ``device``, made at the
+    first call and the same after: a search's graphs belong to the stream
+    they replay on (``utils/graphs.py``), so a new stream for every
+    search would capture every search anew.  ``graphs.new_stream`` keeps
+    it apart from the graphs' own streams."""
+    key = (device, index)
+    if key not in _streams:
+        _streams[key] = graphs.new_stream(device)
+    return _streams[key]
+
+
 class DataShards:
     """The data shards of a mesh in this process: each has a device and,
-    on a card, a CUDA stream of its own.  ``run`` calls a function per
-    shard on its stream; ``to_host`` queues each shard's result's copy to
-    one pinned host tensor right behind it, with an event per shard."""
+    on a card, a CUDA stream of its own (``shard_stream``).  ``run`` calls
+    a function per shard on its stream; ``to_host`` queues each shard's
+    result's copy to one pinned host tensor right behind it, with an event
+    per shard."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.devices = mesh.data_devices()
         self.n = len(self.devices)
-        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
-                        for d in self.devices]
+        self.streams = [shard_stream(d, i) if d.type == "cuda" else None
+                        for i, d in enumerate(self.devices)]
         self._copies: dict = {}
 
     def replicate(self, obj) -> list:

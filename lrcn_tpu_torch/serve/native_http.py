@@ -23,7 +23,11 @@ coalesced batch, in three threads:
   runs them through ``caption_images`` in a persistent pool of depth 2.
 
 ``/v1/caption`` opens last (``lrcn_serve_ready``): before it, a caption
-request gets 503, never a raw image id read as a store row.  The
+request gets 503, never a raw image id read as a store row.  It opens
+after ``warmup_burst_shapes`` and ``warmup_feature_burst_shapes``, which
+capture the service's search graphs of every burst size (on a card a
+capture synchronizes it; the encoder batch's graph is captured by
+``CaptionService.warmup()``, which ``lrcn-torch serve`` calls first).  The
 statuses are the C++ front end's: 400 for a malformed body, an unknown id
 or a wrong feature width, 404 for another route, 503 past ``max_queue``
 or while shutting down, 504 past the service's ``request_timeout_s``,

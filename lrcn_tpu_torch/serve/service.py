@@ -21,6 +21,14 @@ search, with a CUDA event that the fetch waits on (not the whole stream,
 which would also wait for the searches issued after it).  The C++ front
 end (``serve/native_http.py``) issues through the same entry points.
 
+On a card every search and every encoder batch is one replay of a CUDA
+graph (``decode/beam.py``, ``data/images.py:images_to_fc7``), captured at
+the second call of a shape (the first runs eagerly), as the JAX service
+runs one compiled program a burst.  Capturing synchronizes the card, so
+``warmup()`` (and the C++ front end before it reports ready) runs every
+shape the service runs twice, capturing each: each burst size of each
+decode path and the encoder batch.
+
 Requests by id ship int64 row indices into a feature table that lives on
 the device, uploaded once at construction (a store empty at construction
 gets no table: requests by id then go through the store's own lookup and
@@ -52,12 +60,11 @@ from lrcn_tpu_torch import as_device
 from lrcn_tpu_torch.config import LRCNConfig
 from lrcn_tpu_torch.core.vocab import Vocab
 from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
-from lrcn_tpu_torch.data.images import CROP, normalize_batch
+from lrcn_tpu_torch.data.images import CROP, images_to_fc7
 from lrcn_tpu_torch.decode.beam import rows_search, search
 from lrcn_tpu_torch.decode.writer import detokenize_batch
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
-from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7
-from lrcn_tpu_torch.models.vgg import l1_normalize as l1_normalize_device
+from lrcn_tpu_torch.models.vgg import VGGEncoder
 from lrcn_tpu_torch.parallel.decode import DataShards
 from lrcn_tpu_torch.serve.batcher import DynamicBatcher
 from lrcn_tpu_torch.train.joint import identity_average_image
@@ -268,20 +275,18 @@ class CaptionService:
         return detokenize_batch(self._wait(raw), self.vocab)
 
     def _encode_fn(self, images: Sequence[np.ndarray]):
-        """ENQUEUE one padded encoder batch: upload uint8, normalize, VGG
-        to fc7, L1-normalize, all on the device; returns the raw result
-        for ``_encode_finalize`` without waiting."""
+        """ENQUEUE one padded encoder batch: upload uint8, then normalize,
+        VGG to fc7 and L1-normalize on the device (``images_to_fc7``);
+        returns the raw result for ``_encode_finalize`` without waiting."""
         n = len(images)
         batch = np.zeros((self._encode.max_batch, CROP, CROP, 3), np.uint8)
         batch[:n] = np.asarray(images, np.uint8)
         if self._shards is not None:
-            return self._run_shards(n, lambda i, part: l1_normalize_device(
-                vgg16_fc7(self._vggs[i], normalize_batch(
-                    self._upload(part, self._shards.devices[i]),
-                    self._averages[i]))), batch)
-        pixels = normalize_batch(self._upload(batch), self._average_image)
-        return self._fetch(n, l1_normalize_device(vgg16_fc7(self.vgg,
-                                                            pixels)))
+            return self._run_shards(n, lambda i, part: images_to_fc7(
+                self._vggs[i], self._upload(part, self._shards.devices[i]),
+                self._averages[i]), batch)
+        return self._fetch(n, images_to_fc7(
+            self.vgg, self._upload(batch), self._average_image))
 
     def _encode_finalize(self, raw) -> list[np.ndarray]:
         return list(self._wait(raw))
@@ -292,9 +297,10 @@ class CaptionService:
         """Caption raw fc7 rows.
 
         Rows are L1-normalized here, exactly like the reference's live
-        path (``input/sum(input)``, lrcn.jl:597).  Pre-normalized input is
-        a no-op (fc7 is post-ReLU, so a normalized row re-normalizes to
-        itself).
+        path (``input/sum(input)``, lrcn.jl:597).  A row normalized
+        already sums to 1, so it re-normalizes to itself.  fc7 is taken
+        before relu7 (lrcn.jl:717), so a row may hold negative entries:
+        the divisor is the row's signed sum, not its L1 norm.
         """
         rows = [np.asarray(f, np.float32).reshape(-1) for f in feats]
         for row in rows:
@@ -365,10 +371,12 @@ class CaptionService:
 
     def warmup(self, timeout_s: float = 600.0) -> None:
         """Run every serving path once before taking traffic: this builds
-        the kernels and warms cuBLAS and the caching allocator at every
-        burst size, 1..``MAX_DECODE_GROUPS`` batches, through the feature
-        path and, with a device table, the id path, and at the encoder's
-        batch.  ``timeout_s`` covers the first build."""
+        the kernels and, on a card, runs twice, and so captures the
+        graph of, every burst size, 1..``MAX_DECODE_GROUPS`` batches,
+        through the feature path and, with a device table, the id path,
+        and the encoder's batch, so that no request meets a capture
+        (which synchronizes the card).  ``timeout_s`` covers the first
+        build."""
         dim = self.cfg.cnn_feature_dim
         self._await_all([self._decode.submit(np.zeros(dim, np.float32))],
                         timeout_s=timeout_s)
@@ -378,9 +386,10 @@ class CaptionService:
                             timeout_s=timeout_s)
             self.warmup_burst_shapes()
         if self._encode is not None:
-            feat = self._await_all(
-                [self._encode.submit(np.zeros((CROP, CROP, 3), np.uint8))],
-                timeout_s=timeout_s)[0]
+            for _ in range(2):              # eagerly, then captured
+                feat = self._await_all([self._encode.submit(
+                    np.zeros((CROP, CROP, 3), np.uint8))],
+                    timeout_s=timeout_s)[0]
             self._await_all([self._decode.submit(feat)],
                             timeout_s=timeout_s)
 
@@ -391,13 +400,14 @@ class CaptionService:
                 for g in range(self.MAX_DECODE_GROUPS)]
 
     def warmup_feature_burst_shapes(self) -> None:
-        """Run one feature search of every burst size, so that the first
-        requests of each size find the allocator and cuBLAS warm.
-        Idempotent; ``warmup()`` and the C++ front end call it."""
+        """Run two feature searches of every burst size (the first runs
+        eagerly, the second captures), so that the first requests of each
+        size find its graph captured.  Idempotent; ``warmup()`` and the
+        C++ front end call it."""
         if self._feat_burst_warm:
             return
         dim = self.cfg.cnn_feature_dim
-        for n in self._burst_sizes():
+        for n in 2 * self._burst_sizes():
             self._decode_finalize(self._decode_feats_grouped(
                 np.ones((n, dim), np.float32)))
         self._feat_burst_warm = True
@@ -408,7 +418,7 @@ class CaptionService:
         table)."""
         if self._table is None or self._burst_warm:
             return
-        for n in self._burst_sizes():
+        for n in 2 * self._burst_sizes():
             self._decode_finalize(self._decode_rows_grouped([0] * n))
         self._burst_warm = True
 
