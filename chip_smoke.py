@@ -7,14 +7,17 @@
                                        # joint dispatch (torch.profiler)
     python3 chip_smoke.py --export     # instead: phases 1, 2 and 15 alone
     python3 chip_smoke.py --mesh       # instead: phases 1, 2 and 16 alone
-    python3 chip_smoke.py --graphs     # instead: phases 1, 2 and 17 alone
+    python3 chip_smoke.py --graphs     # instead: phases 1, 2, 17 and 18
+                                       # alone
 
 Phases, each printing its own lines; any failure raises and the script
-exits nonzero.  Every search and encoder batch of the serving and
-generation paths (phases 5, 6, 8, 9, 12, 13, 14, 16) runs eagerly at its
-first call of a shape and, from the second on, as one replay of a CUDA
-graph captured then (``lrcn_tpu_torch/utils/graphs.py``); the launch
-counts they hold count a replay's launches once each:
+exits nonzero.  Every search, encoder batch, sampling search, training
+dispatch and evaluation, joint step and reloaded export program (phases
+5, 6, 8-16) runs eagerly at its first call of a signature and, from the
+second on, as one replay of a CUDA graph captured then
+(``lrcn_tpu_torch/utils/graphs.py``; the mesh's training steps stay
+eager); the launch counts they hold count a replay's launches once each,
+and their timings warm each signature up twice:
 
 1. card and software: ``nvidia-smi``'s name and power limit, torch and CUDA
    versions, ``require_cuda``;
@@ -180,7 +183,22 @@ counts they hold count a replay's launches once each:
    that memory freed with its module.  Phase 14 also holds that no graph is
    captured after the service's warm-up, phase 16 that each shard's
    stream replays graphs of its own, and the run that no graph of phases
-   5-9 is alive when training starts.
+   5-9 is alive when training starts;
+18. one-program dispatch of sampling, training, the joint step and
+   reloaded export programs, at the reference width, each graphed path
+   called eagerly, captured and replayed on other inputs and held against
+   an eager twin: four K=8 training dispatches (dropout 0.4, bf16;
+   losses, parameters and the 19 optax leaves bit-equal) and the K-batch
+   ``average_loss``; four best-of-100 searches of 256 images on one
+   generator (tokens and scores bit-equal, the generators in one state);
+   three K=4 joint dispatches under cuDNN's deterministic algorithms
+   (losses equal, parameters within RESUME_RTOL) and ``eval_batch``; phase
+   15's beam, image and sample artifacts (the sample one with two seeds
+   in turn) against their programs' eager ``forward``; each replay's
+   launches; for each path eager against graphed host wall, host enqueue
+   and device ms, the first and capturing calls' seconds, the memory the
+   capture kept and its return once its owner is dropped.  ``--graphs``
+   exports the three artifacts itself.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
@@ -262,7 +280,7 @@ FC7_BF16_RTOL = 3e-2
 # captions of L=20 padded words, lengths 10-20, K=8 steps a dispatch from a
 # 10,000-row feature table on the card, dropout 0.4, bf16
 TRAIN_BATCH, TRAIN_LEN, TRAIN_K, TRAIN_ROWS = 256, 20, 8, 10_000
-TRAIN_DISPATCHES = 3        # timed, after one warm-up dispatch
+TRAIN_DISPATCHES = 3        # timed, after two warm-up dispatches
 TRAIN_DROPOUT = 0.4
 #  one f32 step on the card (TF32 off) against the same code on the CPU, at
 #  a narrow width: the loss within 1e-5 relative, every gradient within
@@ -290,7 +308,7 @@ SAMPLE_F32_N = 8            # the f32 kernel-vs-plain check: 256 x 8 rows
 # mean image 117) and the 2x1000 decoder, B=128 captions of L=20, lengths
 # 10-20, K=4 steps a dispatch, dropout 0.4, bf16, VGG rematerialised
 JOINT_BATCH, JOINT_LEN, JOINT_K = 128, 20, 4
-JOINT_DISPATCHES = 2        # timed, after one warm-up dispatch
+JOINT_DISPATCHES = 2        # timed, after two warm-up dispatches
 JOINT_MEAN = 117.0
 VGG16_MACS = 15.47e9        # multiply-adds of one 224x224 VGG-16 forward
 #  the narrow joint model (card vs CPU, freeze, the learnable set): VGG at
@@ -348,6 +366,7 @@ NATIVE_STALL_MS = 300.0
 # the parts below); the beam artifact runs 1, 256 and 16x256 rows through
 # one file
 SCRIPT = os.path.join(REPO, "chip_smoke.py")
+EXPORT_WORK = os.path.join(WORK, "export")  # phase 15's; phase 18 reuses it
 RELOAD_PARTS = {"beam": ("bf16",), "rest": ("sample", "f32", "image")}
 EXPORT_ROWS = (1, DECODE_BATCH, 16 * DECODE_BATCH)
 EXPORT_IMAGES = ENCODE_BATCH
@@ -1626,8 +1645,9 @@ def phase_train(smi: str) -> None:
 
     trainer, params, opt, batches, store = train_setup()
     key, shuffle = 1, np.random.default_rng(SEED)
-    trainer.train_epoch(params, opt, batches[:TRAIN_K], store, key, shuffle,
-                        log_every=0)            # warm-up dispatch
+    for _ in range(2):      # warm-up: the first dispatch runs eagerly, the
+        trainer.train_epoch(params, opt, batches[:TRAIN_K], store, key,
+                            shuffle, log_every=0)   # second captures
     timed = batches[TRAIN_K:]
     words = int(sum(np.maximum(b.lengths, 0).sum() for b in timed))
     torch.cuda.reset_peak_memory_stats()
@@ -1687,7 +1707,8 @@ def phase_sample(smi: str) -> dict:
     run = lambda: best_of_n_search(
         ck["decoder"], feats, n_samples=SAMPLE_N, temperature=SAMPLE_T,
         max_words=MAX_WORDS, generator=gen)
-    run()[0].cpu()                                      # warm up
+    run()[0].cpu()          # warm up: the first call runs eagerly, the
+    run()[0].cpu()          # second captures
     iters = 3
     reset_counts(fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
     t0 = time.perf_counter()
@@ -2074,8 +2095,10 @@ def phase_joint(smi: str) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     key = 2
-    _, _, losses = step.multi_step(params, opt_state, *chunk, key, 0)
-    losses.cpu()                                # warm-up dispatch
+    for d in range(2):      # warm-up: the first dispatch runs eagerly, the
+        _, _, losses = step.multi_step(     # second captures
+            params, opt_state, *chunk, fold_in(key, 100 + d), 0)
+    losses.cpu()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fused_lstm_step, topk_logsumexp, fused_conv3x3_relu)
     t0 = time.perf_counter()
@@ -3381,6 +3404,40 @@ def check_export_captions(label: str, decoder, feats, got, want, vocab
             f"within {max(rescored):.3g}, tol {EXPORT_SCORE_ATOL})")
 
 
+def export_runs(names=None) -> dict[str, list]:
+    """``lrcn-torch export`` arguments of each of phase 15's directories
+    (``names``: some of them), from phase 5's and phase 8's checkpoints."""
+    ckpt, joint = os.path.join(WORK, "ckpt"), os.path.join(WORK, "joint")
+    runs = {"bf16": ["--loadfile", ckpt, "--variants", "beam,greedy"],
+            "sample": ["--loadfile", ckpt, "--variants", "sample",
+                       "--sample-n", str(SAMPLE_N), "--temperature",
+                       str(SAMPLE_T)],
+            "f32": ["--loadfile", ckpt, "--compute-dtype", "float32"],
+            "image": ["--loadfile", joint, "--variants", "image"]}
+    return {name: argv for name, argv in runs.items()
+            if names is None or name in names}
+
+
+def export_dirs(runs: dict[str, list]) -> dict[str, tuple]:
+    """Export each of ``runs`` into ``EXPORT_WORK/<name>``, one process a
+    directory, all started together (tracing is host-bound Python, one
+    core each); each process's (exit code, stdout, stderr), all exit
+    codes checked."""
+    shutil.rmtree(EXPORT_WORK, ignore_errors=True)
+    os.makedirs(EXPORT_WORK)
+    common = ["--beam_width", str(BEAM), "--generate", str(MAX_WORDS)]
+    procs = {name: subprocess.Popen(
+        [sys.executable, SCRIPT, "--export-cli", "--out",
+         os.path.join(EXPORT_WORK, name), *common, *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+        for name, argv in runs.items()}
+    outs = {name: finish(proc, 900) for name, proc in procs.items()}
+    for name, (code, out, err) in outs.items():
+        check(code == 0, f"lrcn-torch export {name} exited {code}:\n"
+                         f"{err[-6000:]}")
+    return outs
+
+
 def phase_export(smi: str) -> dict[str, dict]:
     """Phase 15: ``lrcn-torch export`` of phase 5's checkpoint (beam and
     greedy, sample in bf16; beam in f32) and phase 8's joint checkpoint
@@ -3399,30 +3456,12 @@ def phase_export(smi: str) -> dict[str, dict]:
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
 
     t_phase = time.perf_counter()
-    work = os.path.join(WORK, "export")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+    work = EXPORT_WORK
     ckpt, joint = os.path.join(WORK, "ckpt"), os.path.join(WORK, "joint")
-    common = ["--beam_width", str(BEAM), "--generate", str(MAX_WORDS)]
-    runs = {"bf16": ["--loadfile", ckpt, "--variants", "beam,greedy"],
-            "sample": ["--loadfile", ckpt, "--variants", "sample",
-                       "--sample-n", str(SAMPLE_N), "--temperature",
-                       str(SAMPLE_T)],
-            "f32": ["--loadfile", ckpt, "--compute-dtype", "float32"],
-            "image": ["--loadfile", joint, "--variants", "image"]}
-    # one process a directory, all started together: tracing is host-bound
-    # Python, one core each
+    runs = export_runs()
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
-        [sys.executable, SCRIPT, "--export-cli", "--out",
-         os.path.join(work, name), *common, *argv],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
-        for name, argv in runs.items()}
-    outs = {name: finish(proc, 900) for name, proc in procs.items()}
+    outs = export_dirs(runs)
     export_s = time.perf_counter() - t0
-    for name, (code, out, err) in outs.items():
-        check(code == 0, f"lrcn-torch export {name} exited {code}:\n"
-                         f"{err[-6000:]}")
     files = [("beam", "bf16"), ("greedy", "bf16"), ("sample", "sample"),
              ("beam", "f32"), ("image", "image")]
     times = {}
@@ -3586,7 +3625,6 @@ def phase_export(smi: str) -> dict[str, dict]:
                       f"{rates[rows]:.1f}" for rows in EXPORT_ROWS[1:])
           + f" on {smi}; reload processes {reload_s:.1f} s; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    shutil.rmtree(work, ignore_errors=True)
     return {"export_beam": info["counts"][f"beam {DECODE_BATCH}"],
             "export_sample": info["counts"][f"sample {SAMPLE_IMAGES}"],
             "export_image": info["counts"][f"image {EXPORT_IMAGES}"]}
@@ -4382,6 +4420,423 @@ def phase_graphs(smi: str, rng) -> dict[str, int]:
     return replay_counts
 
 
+@contextmanager
+def eager_bodies():
+    """Every graphed entry point runs its eager body, as on CPU tensors
+    (``graphs.enabled`` says no): the un-graphed twin of a graphed call.
+    Optimizers made outside the block keep their fused, capturable
+    Adam."""
+    from lrcn_tpu_torch.utils import graphs
+
+    real = graphs.enabled
+    graphs.enabled = lambda x: False
+    try:
+        yield
+    finally:
+        graphs.enabled = real
+
+
+def eager_against_graphed(eager, graphed, calls: int) -> dict:
+    """Median host wall, host enqueue and device ms per call of ``eager``
+    (run inside ``eager_bodies``) and ``graphed``, in turns (eager,
+    graphed, graphed, eager; ``calls`` a turn)."""
+    def un_graphed():
+        with eager_bodies():
+            return eager()
+
+    runs = {"eager": un_graphed, "graphed": graphed}
+    walls: dict = {k: [] for k in runs}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        walls[name].append(graph_wall_ms(runs[name], calls))
+    return {name: {"wall_ms": statistics.median(w for w, _ in walls[name]),
+                   "enqueue_ms": statistics.median(e for _, e in
+                                                   walls[name]),
+                   "device_ms": device_ms(fn, calls, one_kernel=False)}
+            for name, fn in runs.items()}
+
+
+def timed_call(fn):
+    """``fn()``'s result and its seconds, the card synchronized around."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def reserved_mb() -> float:
+    """The caching allocator's reserved memory once its free blocks are
+    returned, MB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2 ** 20
+
+
+def dispatch_report(label: str, r: dict, smi: str, unit: str) -> None:
+    """Print a path's eager against graphed figures; hold that the memory
+    its capture kept came back with its owner."""
+    check(r["reserved_after_drop_mb"] <= GRAPH_KEPT_MB,
+          f"{label}: {r['reserved_after_drop_mb']} MB more reserved after "
+          f"the graph's owner was dropped")
+    e, g = r["eager"], r["graphed"]
+    print(f"[18 dispatch] {label} on {smi}: eager wall {e['wall_ms']:.3f} ms "
+          f"{unit} (enqueue {e['enqueue_ms']:.3f}), device "
+          f"{e['device_ms']:.3f}; graphed wall {g['wall_ms']:.3f} (enqueue "
+          f"{g['enqueue_ms']:.3f}), device {g['device_ms']:.3f}; wall ratio "
+          f"eager / graphed {e['wall_ms'] / g['wall_ms']:.2f}; first call "
+          f"(eager) {r['first_call_s']:.3f} s, capturing call (capture and "
+          f"replay) {r['capture_call_s']:.3f} s; the capture kept "
+          f"{r['capture_kept_mb']:.1f} MB reserved, "
+          f"{r['reserved_after_drop_mb']:+.1f} MB against before once its "
+          f"owner was dropped")
+
+
+def dispatch_train(smi: str) -> dict:
+    """Phase 18, training: four K=8 dispatches at the reference width
+    (dropout 0.4, bf16) on chunks A, A, B, C (eager, capture, two
+    replays) against an eager twin from the same initial state: the
+    losses of each and the parameters and optimizer leaves after them
+    bit-equal; ``average_loss``'s K-batch evaluation graphed against
+    eager; eager against graphed times of a dispatch."""
+    from lrcn_tpu_torch.models.lrcn import PARAM_KEYS
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+    from lrcn_tpu_torch.utils import graphs
+
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    trainer, params, opt, batches, store = train_setup()
+    twin, twin_opt = trainer.init(SEED)
+    table = trainer._device_table(store)
+    chunks = [trainer._stacked(batches[i * TRAIN_K:(i + 1) * TRAIN_K],
+                               store)[1] for i in range(4)]
+    order = (0, 0, 1, 2)
+
+    def dispatch(p, o, d, chunk=None):
+        c = chunks[order[d] if chunk is None else chunk]
+        return trainer._dispatch(p, o, *c, table, 1, TRAIN_K * d)
+
+    base = reserved_mb()
+    reset_counts(*fns)
+    got, seconds = [], []
+    for d in range(4):
+        losses, sec = timed_call(lambda: dispatch(params, opt, d))
+        got.append(losses)
+        seconds.append(sec)
+    counts = read_counts(*fns)
+    check(sum(counts.values()) == 0, f"graphed training launched "
+                                     f"hand-written kernels: {counts}")
+    kept = reserved_mb() - base
+    with eager_bodies():
+        want = [dispatch(twin, twin_opt, d) for d in range(4)]
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"graphed training dispatches: losses {[g.tolist() for g in got]}"
+          f" against eager {[w.tolist() for w in want]}")
+    differ = [k for k in PARAM_KEYS if not torch.equal(params[k], twin[k])]
+    check(not differ, f"graphed training: parameters {differ} differ from "
+                      f"the eager twin's after 4 dispatches")
+    leaves, twin_leaves = opt.state_leaves(), twin_opt.state_leaves()
+    check(int(leaves[0]) == 4 * TRAIN_K
+          and all(np.array_equal(a, b) for a, b in zip(leaves, twin_leaves)),
+          "graphed training: Adam's leaves differ from the eager twin's")
+    (entry,) = graphs.graphs(opt)
+    # restored leaves: Adam's count on the card, the graphs dropped, the
+    # next dispatch eager and the one after captured anew
+    opt.load_leaves(leaves)
+    steps_on = {str(st["step"].device) for st in opt.adam.state.values()}
+    check(steps_on == {str(params["embedding"].device)}
+          and graphs.graphs(opt) == [],
+          f"load_leaves: Adam's count on {steps_on}, "
+          f"{len(graphs.graphs(opt))} graphs kept")
+    captures = graphs.stats["captures"]
+    for d in (4, 5):
+        dispatch(params, opt, d, 3)
+    check(graphs.stats["captures"] == captures + 1
+          and int(opt.state_leaves()[0]) == 6 * TRAIN_K,
+          "load_leaves: the two dispatches after it did not run eagerly "
+          "and then capture anew")
+    evals = [trainer.average_loss(params, batches, store) for _ in range(3)]
+    with eager_bodies():
+        eager_eval = trainer.average_loss(params, batches, store)
+    check(all(e == eager_eval for e in evals),
+          f"graphed K-batch evaluation {evals} against eager {eager_eval}")
+    print(f"[18 dispatch] training, reference width, B={TRAIN_BATCH}, "
+          f"L={TRAIN_LEN}, K={TRAIN_K}, dropout {TRAIN_DROPOUT}, bf16: four "
+          f"dispatches (eager, capture, two replays on other batches) "
+          f"bit-equal to an eager twin: losses, parameters and the 19 "
+          f"optax leaves (count {int(leaves[0])}); the graph has "
+          f"{len(entry.generators)} dropout generators and replayed "
+          f"{entry.replays} times; average_loss over {len(batches)} batches "
+          f"(K-batch graphs) {evals[-1]:.6f} = eager; no hand-written "
+          f"kernel launched; after load_leaves Adam's count is on "
+          f"{steps_on.pop()}, the next dispatch ran eagerly and the one "
+          f"after captured anew")
+    r = eager_against_graphed(lambda: dispatch(twin, twin_opt, 3, 1),
+                              lambda: dispatch(params, opt, 3, 1), 4)
+    r.update(first_call_s=seconds[0], capture_call_s=seconds[1],
+             capture_kept_mb=kept)
+    del trainer, params, opt, twin, twin_opt, entry, table, chunks
+    r["reserved_after_drop_mb"] = reserved_mb() - base
+    dispatch_report(f"training dispatch (K={TRAIN_K} steps; per step "
+                    f"eager {r['eager']['wall_ms'] / TRAIN_K:.3f}, graphed "
+                    f"{r['graphed']['wall_ms'] / TRAIN_K:.3f} ms)", r, smi,
+                    "a dispatch")
+    return r
+
+
+def dispatch_sample(smi: str, tree: dict, rng) -> tuple[dict, dict]:
+    """Phase 18, sampling: best-of-100 of 256 images at the reference
+    width, bf16, four successive calls on one generator (images A, A, B,
+    C: eager, capture, two replays) against four eager calls on a
+    generator seeded alike: tokens and scores bit-equal, the generators
+    in one state after each; each replay's launches; eager against
+    graphed times.  Returns the timings and the replays' launches."""
+    from lrcn_tpu_torch.decode.sample import best_of_n_search
+    from lrcn_tpu_torch.models.lrcn import params_from_numpy
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    steps = MAX_WORDS + 1
+    dec = params_from_numpy(tree, "cuda", torch.bfloat16)
+    raw = np.abs(rng.standard_normal((3, SAMPLE_IMAGES, CNN_DIM),
+                                     dtype=np.float32))
+    feats = torch.from_numpy(raw / raw.sum(-1, keepdims=True)).cuda()
+    gen, ref = (torch.Generator(device="cuda").manual_seed(SEED)
+                for _ in range(2))
+    call = lambda f, g: best_of_n_search(
+        dec, f, n_samples=SAMPLE_N, temperature=SAMPLE_T,
+        max_words=MAX_WORDS, generator=g)
+    base = reserved_mb()
+    replays = dict.fromkeys(read_counts(*fns), 0)
+    seconds = []
+    for d, which in enumerate((0, 0, 1, 2)):
+        reset_counts(*fns)
+        (tok_g, sc_g), sec = timed_call(lambda: call(feats[which], gen))
+        seconds.append(sec)
+        got = read_counts(*fns)
+        if d >= 2:
+            check(got == {"fused_conv3x3_relu": 0,
+                          "fused_lstm_step": 2 * steps,
+                          "topk_logsumexp": 0}
+                  and fused_lstm_step.launches_by_route["wgmma"] == 2 * steps,
+                  f"sampling replay: launches {got}")
+            for name, n in got.items():
+                replays[name] += n
+        if d == 1:
+            kept = reserved_mb() - base
+        with eager_bodies():
+            tok_e, sc_e = call(feats[which], ref)
+        check(torch.equal(tok_g, tok_e) and torch.equal(sc_g, sc_e),
+              f"best-of-{SAMPLE_N} call {d + 1}: graphed tokens or scores "
+              f"differ from the eager call's on one generator's stream")
+        check(torch.equal(gen.get_state(), ref.get_state()),
+              f"best-of-{SAMPLE_N} call {d + 1}: the generators' states "
+              f"differ after the graphed and the eager call")
+    print(f"[18 dispatch] best-of-{SAMPLE_N} sampling of {SAMPLE_IMAGES} "
+          f"images, T={SAMPLE_T}, bf16: four successive calls on one "
+          f"generator (eager, capture, two replays on other images) "
+          f"bit-equal, tokens and scores, to four eager calls on a "
+          f"generator seeded alike, which ends in the same state; each "
+          f"replay launched {2 * steps} LSTM (all wgmma)")
+    r = eager_against_graphed(lambda: call(feats[1], ref),
+                              lambda: call(feats[1], gen), 3)
+    r.update(first_call_s=seconds[0], capture_call_s=seconds[1],
+             capture_kept_mb=kept)
+    del dec, call, tok_g, sc_g, tok_e, sc_e
+    r["reserved_after_drop_mb"] = reserved_mb() - base
+    dispatch_report(f"best-of-{SAMPLE_N} sampling of {SAMPLE_IMAGES} images"
+                    f" ({SAMPLE_IMAGES * SAMPLE_N} rows)", r, smi,
+                    "a search")
+    return r, replays
+
+
+def dispatch_joint(smi: str) -> dict:
+    """Phase 18, the joint step: K=4 dispatches at the reference width
+    (full VGG-16, B=128, dropout 0.4, bf16, remat) on chunks A, A, B
+    (eager, capture, a replay on other images) against an eager twin from
+    the same initial state, under cuDNN's deterministic algorithms: the
+    losses equal, the parameters within RESUME_RTOL of their largest
+    entry (bit-equality printed); ``eval_batch`` graphed against eager;
+    then, a new optimizer under the default algorithms, eager against
+    graphed times of a dispatch."""
+    from lrcn_tpu_torch.models import lrcn
+
+    step, params, opt_state, chunk = joint_setup()
+    twin, twin_opt = step.init(SEED)
+    chunks = [chunk, (chunk[0].flip(2), *chunk[1:])]
+    order = (0, 0, 1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = [step.multi_step(params, opt_state, *chunks[c], 3, 4 * d)[2]
+               for d, c in enumerate(order)]
+        with eager_bodies():
+            want = [step.multi_step(twin, twin_opt, *chunks[c], 3, 4 * d)[2]
+                    for d, c in enumerate(order)]
+        batch = [t[0] for t in chunks[1]]
+        evals = [torch.stack(step.eval_batch(params, *batch))
+                 for _ in range(3)]
+        with eager_bodies():
+            eager_eval = torch.stack(step.eval_batch(params, *batch))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"graphed joint dispatches: losses {[g.tolist() for g in got]} "
+          f"against eager {[w.tolist() for w in want]}")
+    check(all(torch.equal(e, eager_eval) for e in evals),
+          f"graphed joint eval_batch {evals} against eager {eager_eval}")
+    flat, twin_flat = lrcn.flat_tree(params), lrcn.flat_tree(twin)
+    errs = {k: float(np.abs(flat[k] - twin_flat[k]).max()
+                     / max(np.abs(twin_flat[k]).max(), 1e-30))
+            for k in flat}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= RESUME_RTOL, f"graphed joint step: {worst} off by "
+                                      f"{errs[worst]:.3g} from the eager "
+                                      f"twin's")
+    equal = all(np.array_equal(flat[k], twin_flat[k]) for k in flat)
+    print(f"[18 dispatch] joint step, reference width, B={JOINT_BATCH}, "
+          f"L={JOINT_LEN}, K={JOINT_K}, dropout {TRAIN_DROPOUT}, bf16, "
+          f"remat, cudnn.deterministic: three dispatches (eager, capture, "
+          f"a replay on other images) against an eager twin: losses equal "
+          f"({got[-1].tolist()}); parameters within {errs[worst]:.3g} of "
+          f"their largest entry ({worst}; tol {RESUME_RTOL}), bit-equal: "
+          f"{equal}; eval_batch graphed = eager")
+    del twin, twin_opt, opt_state, flat, twin_flat
+    base = reserved_mb()
+    opt_state = step.opt.init(params)
+    seconds = []
+    for d in range(2):
+        out, sec = timed_call(lambda: step.multi_step(
+            params, opt_state, *chunks[0], 5, 4 * d))
+        seconds.append(sec)
+        if d == 1:
+            kept = reserved_mb() - base
+    r = eager_against_graphed(
+        lambda: step.multi_step(params, opt_state, *chunks[1], 5, 8),
+        lambda: step.multi_step(params, opt_state, *chunks[1], 5, 8), 2)
+    r.update(first_call_s=seconds[0], capture_call_s=seconds[1],
+             capture_kept_mb=kept)
+    del opt_state, out
+    r["reserved_after_drop_mb"] = reserved_mb() - base
+    dispatch_report(f"joint dispatch (K={JOINT_K} steps of B={JOINT_BATCH};"
+                    f" per step eager {r['eager']['wall_ms'] / JOINT_K:.3f},"
+                    f" graphed {r['graphed']['wall_ms'] / JOINT_K:.3f} ms)",
+                    r, smi, "a dispatch")
+    del step, params, chunk, chunks
+    return r
+
+
+def dispatch_artifacts(smi: str, rng) -> tuple[dict, dict]:
+    """Phase 18, reloaded export programs (phase 15's beam, sample and
+    image artifacts, loaded here): each program called eagerly and
+    captured on inputs A, then replayed on inputs B (the sample program
+    with two seeds in turn), its tokens and scores equal to its eager
+    ``forward`` on B; each replay's launches; eager against graphed times
+    of the beam artifact at 1x256.  Returns the timings and the replays'
+    launches."""
+    from lrcn_tpu_torch.export import load_exported
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    steps = MAX_WORDS + 1
+    unloaded = reserved_mb()
+    models = {name: load_exported(os.path.join(EXPORT_WORK, name), "cuda")
+              for name in ("bf16", "sample", "image")}
+    raw = np.abs(rng.standard_normal((2, DECODE_BATCH, CNN_DIM),
+                                     dtype=np.float32))
+    feats = torch.from_numpy(raw / raw.sum(-1, keepdims=True)).cuda()
+    pixels = torch.from_numpy(rng.integers(
+        0, 256, (2, EXPORT_IMAGES, 224, 224, 3), np.uint8)).cuda()
+    search = {"fused_conv3x3_relu": 0, "fused_lstm_step": 2 * steps,
+              "topk_logsumexp": steps}
+    want_launches = {
+        "beam": search,
+        "sample": dict(search, topk_logsumexp=0),
+        "image": dict(search, fused_conv3x3_relu=13)}
+    replays = dict.fromkeys(read_counts(*fns), 0)
+
+    def eager(model, variant, x, seed=None):
+        program = model._fns[variant].module
+        with torch.inference_mode(), torch.random.fork_rng(
+                devices=[model.device], device_type="cuda"):
+            if seed is not None:
+                torch.cuda.manual_seed(seed)
+            return program.forward(x)
+
+    lines, seconds = [], []
+    for name, variant, inputs in (("bf16", "beam", feats),
+                                  ("image", "image", pixels),
+                                  ("sample", "sample", feats)):
+        model = models[name]
+        seeds = (EXPORT_SEED, EXPORT_SEED + 1) if name == "sample" else (None,)
+        calls = [(0, seeds[0]), (0, seeds[-1]), (1, seeds[0]),
+                 (1, seeds[-1])]
+        for d, (which, seed) in enumerate(calls):
+            args = (inputs[which],) + ((seed,) if seed is not None else ())
+            if name == "bf16" and d == 0:
+                base = reserved_mb()
+            reset_counts(*fns)
+            (tokens, scores), sec = timed_call(lambda: model.call(variant,
+                                                                  *args))
+            got = read_counts(*fns)
+            if name == "bf16" and d < 2:
+                seconds.append(sec)
+                if d == 1:
+                    kept = reserved_mb() - base
+            if d >= 2:
+                check(got == want_launches[variant],
+                      f"{variant} artifact replay: launches {got}")
+                for k, n in got.items():
+                    replays[k] += n
+            want_t, want_s = eager(model, variant, inputs[which], seed)
+            check(torch.equal(tokens, want_t) and torch.equal(scores, want_s),
+                  f"{variant} artifact call {d + 1}: graphed tokens or "
+                  f"scores differ from the program's eager forward")
+        lines.append(f"{variant}: {want_launches[variant]}")
+    print(f"[18 dispatch] reloaded artifacts (beam bf16 at {DECODE_BATCH} "
+          f"rows, image at {EXPORT_IMAGES} images, sample best-of-"
+          f"{SAMPLE_N} at {DECODE_BATCH} images with seeds {EXPORT_SEED} and "
+          f"{EXPORT_SEED + 1} in turn): each call (eager, capture, replays "
+          f"on other inputs) equal, tokens and scores, to the program's "
+          f"eager forward; launches a replay: " + "; ".join(lines))
+    bf16 = models["bf16"]
+    r = eager_against_graphed(lambda: eager(bf16, "beam", feats[1]),
+                              lambda: bf16.call("beam", feats[1]), 20)
+    r.update(first_call_s=seconds[0], capture_call_s=seconds[1],
+             capture_kept_mb=kept)
+    del models, model, bf16
+    r["reserved_after_drop_mb"] = reserved_mb() - unloaded
+    dispatch_report(f"beam artifact, 1x{DECODE_BATCH}", r, smi, "a call")
+    return r, replays
+
+
+def phase_dispatch(smi: str, rng) -> dict[str, int]:
+    """Phase 18: the one-program dispatch of sampling, training, the
+    joint step and reloaded export programs, each graphed path held
+    against its eager body on inputs other than its capture's, with
+    eager against graphed times (``dispatch_*``).  Needs phase 15's
+    export directories.  Returns the launches of the checks' replays."""
+    t0 = time.perf_counter()
+    tree = random_tree(rng)
+    laps = [time.perf_counter()]
+    timings = {"training": dispatch_train(smi)}
+    laps.append(time.perf_counter())
+    timings["sampling"], replays = dispatch_sample(smi, tree, rng)
+    laps.append(time.perf_counter())
+    timings["joint"] = dispatch_joint(smi)
+    laps.append(time.perf_counter())
+    timings["artifact"], more = dispatch_artifacts(smi, rng)
+    laps.append(time.perf_counter())
+    for name, n in more.items():
+        replays[name] += n
+    RESULTS["dispatch"] = timings
+    print(f"[18 dispatch] seconds: {time.perf_counter() - t0:.1f} ("
+          + ", ".join(f"{k} {b - a:.1f}" for k, a, b in zip(
+              timings, laps, laps[1:])) + ")")
+    print(json.dumps({"dispatch_timings": timings}))
+    return replays
+
+
 @torch.inference_mode()
 def path_score_error(decoder, feats, tokens, scores) -> float:
     """How far each row's search score lies from the plain decode step's
@@ -4561,7 +5016,21 @@ def main() -> None:
         shutil.rmtree(WORK, ignore_errors=True)
         return
     if sys.argv[1:] == ["--graphs"]:
-        print(json.dumps(phase_graphs(smi, rng)))
+        replays = {"phase 17": phase_graphs(smi, rng)}
+        tree = random_tree(rng)
+        shutil.rmtree(WORK, ignore_errors=True)
+        from lrcn_tpu_torch.config import LRCNConfig
+        write_checkpoint(os.path.join(WORK, "ckpt"), tree, LRCNConfig(
+            hidden=HIDDEN, embed=EMBED, cnn_feature_dim=CNN_DIM,
+            vocab_size=VOCAB, compute_dtype="bfloat16"))
+        write_joint_checkpoint(os.path.join(WORK, "joint"), tree, rng)
+        t0 = time.perf_counter()
+        export_dirs(export_runs(("bf16", "sample", "image")))
+        print(f"[18 dispatch] exported bf16, sample and image in "
+              f"{time.perf_counter() - t0:.1f} s")
+        replays["phase 18"] = phase_dispatch(smi, rng)
+        print(json.dumps(replays))
+        shutil.rmtree(WORK, ignore_errors=True)
         return
     if sys.argv[1:] == ["--mesh"]:
         tree = random_tree(rng)
@@ -4630,6 +5099,8 @@ def main() -> None:
     lap("16")
     by_path["graph replays (phase 17)"] = phase_graphs(smi, rng)
     lap("17")
+    by_path["graph replays (phase 18)"] = phase_dispatch(smi, rng)
+    lap("18")
     print("[time] seconds by phase: " + ", ".join(
         f"{label} {t - laps[i][1]:.1f}"
         for i, (label, t) in enumerate(laps[1:])))

@@ -25,15 +25,30 @@ Semantics of the JAX package, kept exactly:
 The noise is this package's own: drawn from a ``torch.Generator`` on the
 device, or given as ``gumbel`` (e.g. the noise JAX draws, which the tests
 inject into both packages to compare tokens).
+
+On a card each search is one program, as ``jax.jit`` makes each of the
+JAX package's: ``sample_search`` and ``best_of_n_search`` capture their
+eager body into a CUDA graph at the second call of a signature (the
+first runs eagerly) and replay it from then on (``utils/graphs.py``).
+The signature holds the static arguments and the generator object: the
+graph registers the generator, so a replay draws from its state at the
+time and advances it as an eager call does, and successive calls on one
+generator give the same tokens eagerly or replayed.  Injected ``gumbel``
+noise is one more input.  ``sample_search_fn`` and ``best_of_n_search_fn``
+stay the eager bodies: what ``torch.export`` traces and what the graphs
+capture.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from lrcn_tpu_torch.core.vocab import BOS_ID, EOS_ID
 from lrcn_tpu_torch.models import lrcn
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder, LSTMState
+from lrcn_tpu_torch.utils import graphs
 
 
 def gumbel_noise(shape: tuple[int, ...],
@@ -68,13 +83,31 @@ def sample_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
         ``models.lrcn.decode_step``).
 
     Returns (tokens (B, max_words+2) int64 with BOS at column 0, scores
-    (B,) float32 untempered cumulative log-probabilities).
+    (B,) float32 untempered cumulative log-probabilities).  On a card one
+    graph replay (eager at a signature's first call).
     """
+    return _graphed(sample_search_fn, ("sample",), decoder, feats,
+                    temperature=temperature, max_words=max_words,
+                    generator=generator, gumbel=gumbel,
+                    use_kernels=use_kernels)
+
+
+def _graphed(body, key: tuple, decoder: LRCNDecoder, feats: torch.Tensor, *,
+             generator, gumbel, **static):
+    """``body(decoder, feats, ...)`` through ``graphs.run``: the noise is
+    one more input where it is given, else drawn from ``generator``, whose
+    object is part of the signature."""
     if gumbel is None and generator is None:
         raise ValueError("sampling needs a generator or gumbel noise")
-    return sample_search_fn(decoder, feats, temperature=temperature,
-                            max_words=max_words, generator=generator,
-                            gumbel=gumbel, use_kernels=use_kernels)
+    key = (*key, *sorted(static.items()))
+    if gumbel is not None:
+        return graphs.run(
+            decoder, key, lambda f, g: body(decoder, f, gumbel=g, **static),
+            (feats, gumbel))
+    return graphs.run(
+        decoder, (*key, generator),
+        functools.partial(body, decoder, generator=generator, **static),
+        (feats,), generators=(generator,))
 
 
 def sample_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
@@ -115,6 +148,7 @@ def sample_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
     return tokens, scores
 
 
+@torch.inference_mode()
 def best_of_n_search(decoder: LRCNDecoder, feats: torch.Tensor, *,
                      n_samples: int = 100, temperature: float = 2.0,
                      max_words: int = 30,

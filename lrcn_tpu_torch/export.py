@@ -40,9 +40,16 @@ tokens of the live ``best_of_n_search(generator=...)``, and the same
 tokens for the same ``(feats, seed)`` on every call.  (JAX's program takes
 a ``uint32[2]`` key; its stream cannot be reproduced in torch.)
 
+On a card a loaded program runs as the live searches do
+(``utils/graphs.py``): eagerly at the first call of an input shape, then
+captured into a CUDA graph, which every later call of that shape replays,
+the kernels inside it.  The graph registers the device's default
+generator, so a replayed sample program draws from the seed the call
+set, as an eager one does.
+
 The consumer path (``load_exported``, ``ExportedModel``) imports
-``torch``, ``core.vocab`` and the op registrations, and nothing of
-``models``, ``decode``, ``serve`` or ``train``.  ``ops.kernels`` is
+``torch``, ``core.vocab``, ``utils.graphs`` and the op registrations, and
+nothing of ``models``, ``decode``, ``serve`` or ``train``.  ``ops.kernels`` is
 imported before ``torch.export.load``, which resolves ``torch.ops.lrcn.*``.
 """
 
@@ -58,6 +65,7 @@ import torch
 import lrcn_tpu_torch.ops.kernels  # noqa: F401  (registers lrcn::*)
 from lrcn_tpu_torch import as_device, require_cuda
 from lrcn_tpu_torch.core.vocab import Vocab, detokenize_batch
+from lrcn_tpu_torch.utils import graphs
 
 # the file of each variant runs on either; TPU is the JAX package's
 DEFAULT_PLATFORMS = ("cpu", "cuda")
@@ -239,7 +247,9 @@ class _Program:
     out: through it, a beam search of the reference-width decoder took
     several times the host time it takes through ``forward`` on an H100
     machine (torch 2.11).  The inputs are checked here instead, against
-    the dtypes and static dimensions the program was traced with."""
+    the dtypes and static dimensions the program was traced with.  On a
+    card ``forward`` runs through ``graphs.run`` with the module as owner:
+    one graph replay a call from an input shape's second call on."""
 
     def __init__(self, program: torch.export.ExportedProgram):
         users = set(program.graph_signature.user_inputs)
@@ -262,7 +272,9 @@ class _Program:
                 raise ValueError(
                     f"{name}: {arg.dtype} {tuple(arg.shape)}, want {dtype} "
                     f"{tuple('b' if d is None else d for d in shape)}")
-        return self.module.forward(*args)
+        return graphs.run(
+            self.module, ("program",), self.module.forward, args,
+            generators=(graphs.default_generator(args[0].device),))
 
 
 @dataclass

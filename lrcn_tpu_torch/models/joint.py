@@ -23,7 +23,10 @@ resumes in either package.
 
 ``JointTrainStep`` runs on one device (``"cuda"`` unless the caller asks
 for another); ``multi_step`` runs K steps with the step keys
-``fold_in(base_key, offset + i)``, eagerly, with no host synchronisation.
+``fold_in(base_key, offset + i)``, with no host synchronisation.  On a
+card each step, each ``multi_step`` and each ``eval_batch`` is one CUDA
+graph replay, as JAX jits them (``utils/graphs.py``): a shape's first
+call runs eagerly, its second captures, every later one replays.
 With a ``mesh`` (one rank per entry) it is data parallel, as in JAX: both
 parameter sets are replicated, each rank takes its rows of the global
 batch, the loss differentiated is the global mean (the local NLL sum over
@@ -34,6 +37,7 @@ the clip; the dropout masks are the global batch's, sliced.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -48,9 +52,11 @@ from lrcn_tpu_torch.models.vgg import (PARAM_KEYS as VGG_KEYS, VGGParams,
                                        init_vgg_params, l1_normalize,
                                        vgg16_fc7_train)
 from lrcn_tpu_torch.train.checkpoint import OPT_KEYS, compute_dtype_of
-from lrcn_tpu_torch.train.trainer import (adam_leaves, clip_by_global_norm_,
-                                          fold_in, load_adam_leaves,
-                                          make_adam, step_generator)
+from lrcn_tpu_torch.train.trainer import (adam_leaves, adam_state,
+                                          clip_by_global_norm_, fold_in,
+                                          load_adam_leaves, make_adam,
+                                          step_generator, step_seed)
+from lrcn_tpu_torch.utils import graphs
 
 # optax's flattening order of the VGG parameter dict: sorted keys
 CNN_OPT_KEYS = tuple(sorted(VGG_KEYS))
@@ -80,7 +86,10 @@ def joint_loss_total_count(params: JointParams, images: torch.Tensor,
         return vgg16_fc7_train(params.cnn, x, compute_dtype)
 
     if remat_cnn and torch.is_grad_enabled():
-        feats = checkpoint(fwd, images, use_reentrant=False)
+        # the forward draws no random numbers, so there is no RNG state to
+        # restore for its recompute (and none may be read under capture)
+        feats = checkpoint(fwd, images, use_reentrant=False,
+                           preserve_rng_state=False)
     else:
         feats = fwd(images)
     feats = l1_normalize(feats)       # live-path normalization, lrcn.jl:597
@@ -166,6 +175,13 @@ class JointOptState:
             self.cnn_adam.step()
         self.decoder_adam.step()
 
+    def tensors(self) -> list[torch.Tensor]:
+        """Both parameter sets and both Adams' state, as a captured step
+        reads them."""
+        return self.cnn + self.decoder + [
+            t for a in (self.cnn_adam, self.decoder_adam) if a is not None
+            for t in adam_state(a)]
+
     def state_leaves(self) -> list[np.ndarray]:
         leaves = [] if self.cnn_adam is None else adam_leaves(self.cnn_adam,
                                                               self.cnn)
@@ -185,6 +201,7 @@ class JointOptState:
                              leaves[:n_cnn], "the CNN")
         load_adam_leaves(self.decoder_adam, self.decoder, OPT_KEYS,
                          leaves[n_cnn:], "the decoder")
+        graphs.forget(self)
 
 
 class JointTrainStep:
@@ -222,7 +239,8 @@ class JointTrainStep:
     def _grad_step(self, params: JointParams, opt_state: JointOptState,
                    images, tokens, lengths, key: int,
                    drop_masks=None) -> torch.Tensor:
-        """One optimizer step; returns the batch's loss on the device."""
+        """One optimizer step under the mesh; returns the batch's loss on
+        the device."""
         loss = self.value_and_grad(params, opt_state, images, tokens,
                                    lengths, key, drop_masks)
         opt_state.step()
@@ -235,10 +253,16 @@ class JointTrainStep:
         ``.grad`` of ``opt_state.grad_params()`` (summed over ``data``
         under a mesh); no update.  ``drop_masks``: the global batch's
         dropout masks, injected in the place of the step generator's."""
+        generator = (step_generator(key, self.device)
+                     if self.cfg.dropout > 0 and drop_masks is None
+                     else None)
+        return self._value_and_grad(params, opt_state, images, tokens,
+                                    lengths, generator, drop_masks)
+
+    def _value_and_grad(self, params, opt_state, images, tokens, lengths,
+                        generator, drop_masks=None) -> torch.Tensor:
         pdrop = self.cfg.dropout
         opt_state.zero_grad()
-        generator = (step_generator(key, self.device)
-                     if pdrop > 0 and drop_masks is None else None)
         if self.mesh is not None and pdrop > 0:
             from lrcn_tpu_torch.parallel.train import global_drop_masks
             drop_masks = global_drop_masks(
@@ -259,11 +283,42 @@ class JointTrainStep:
         loss.backward(inputs=opt_state.grad_params())
         return loss.detach()
 
+    def _steps_fn(self, params, opt_state, generators, images_k, tokens_k,
+                  lengths_k) -> torch.Tensor:
+        """The eager body of :meth:`_steps`: K optimizer steps, step i's
+        dropout from ``generators[i]``; leaves no gradient behind."""
+        losses = []
+        for i in range(tokens_k.shape[0]):
+            losses.append(self._value_and_grad(
+                params, opt_state, images_k[i], tokens_k[i], lengths_k[i],
+                generators[i] if generators else None))
+            opt_state.step()
+        opt_state.zero_grad()
+        return torch.stack(losses)
+
+    def _steps(self, params, opt_state, images_k, tokens_k, lengths_k,
+               keys: Sequence[int]) -> torch.Tensor:
+        """K steps with the step keys ``keys``: eagerly under the mesh, on a
+        card one graph replay."""
+        if self.mesh is not None:
+            return torch.stack([
+                self._grad_step(params, opt_state, images_k[i], tokens_k[i],
+                                lengths_k[i], key)
+                for i, key in enumerate(keys)])
+        return graphs.step(
+            opt_state, ("joint", self.cfg.dropout, self.compute_dtype,
+                        self.remat_cnn),
+            functools.partial(self._steps_fn, params, opt_state),
+            (images_k, tokens_k, lengths_k),
+            reads=(*opt_state.tensors(), self._avg),
+            seeds=([step_seed(k) for k in keys] if self.cfg.dropout > 0
+                   else ()))
+
     def __call__(self, params, opt_state, images, tokens, lengths, key: int
                  ) -> tuple[JointParams, JointOptState, torch.Tensor]:
-        loss = self._grad_step(params, opt_state, images, tokens, lengths,
-                               key)
-        return params, opt_state, loss
+        losses = self._steps(params, opt_state, images[None], tokens[None],
+                             lengths[None], [key])
+        return params, opt_state, losses[0]
 
     def multi_step(self, params, opt_state, images_k, tokens_k, lengths_k,
                    base_key: int, offset: int
@@ -271,27 +326,34 @@ class JointTrainStep:
         """K steps over (K, B, ...) stacked batches; step i's dropout key is
         ``fold_in(base_key, offset + i)``.  Returns the K losses, not
         read."""
-        losses = torch.stack([
-            self._grad_step(params, opt_state, images_k[i], tokens_k[i],
-                            lengths_k[i], fold_in(base_key, offset + i))
-            for i in range(tokens_k.shape[0])])
+        keys = [fold_in(base_key, offset + i)
+                for i in range(tokens_k.shape[0])]
+        losses = self._steps(params, opt_state, images_k, tokens_k,
+                             lengths_k, keys)
         return params, opt_state, losses
+
+    def _eval_fn(self, params: JointParams, images, tokens, lengths
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        feats = l1_normalize(vgg16_fc7_train(
+            params.cnn, self._preprocess(images), self.compute_dtype))
+        return lrcn.loss_total_count(params.decoder, tokens, lengths, feats,
+                                     compute_dtype=self.compute_dtype)
 
     @torch.no_grad()
     def eval_batch(self, params: JointParams, images, tokens, lengths
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """(total NLL, token count) of one batch, no dropout, on the
-        device."""
-        feats = l1_normalize(vgg16_fc7_train(
-            params.cnn, self._preprocess(images), self.compute_dtype))
-        total, count = lrcn.loss_total_count(
-            params.decoder, tokens, lengths, feats,
-            compute_dtype=self.compute_dtype)
+        device; on a card one graph replay."""
         if self.mesh is not None:
             from lrcn_tpu_torch.parallel.train import sum_over_data
+            total, count = self._eval_fn(params, images, tokens, lengths)
             return (sum_over_data(total, self.mesh),
                     sum_over_data(count, self.mesh))
-        return total, count
+        return graphs.run(
+            params.cnn, ("joint_eval", self.compute_dtype),
+            functools.partial(self._eval_fn, params),
+            (images, tokens, lengths),
+            reads=(*params.decoder.values(), self._avg))
 
     def init(self, generator: torch.Generator | int, vgg_params=None
              ) -> tuple[JointParams, JointOptState]:

@@ -21,9 +21,15 @@ checkpoints:
   fc7 rows, is 2 GB); with ``steps_per_dispatch = K > 1`` batches run in
   ``chunk_same_shape`` order, then the per-shape tail, as in JAX, the K
   steps are enqueued with no host synchronisation, and the losses are
-  read at most once a dispatch, at a log point.  The steps are the same
-  eager loop for every K: K sets the batch order, which JAX parity needs,
-  and how often the host waits;
+  read at most once a dispatch, at a log point.  K sets the batch order,
+  which JAX parity needs, and how often the host waits;
+- on a card each dispatch of K steps (and each single step, and each
+  K-batch evaluation) is one CUDA graph replay, as JAX jits its
+  ``_multi_step`` and ``_multi_eval`` (``utils/graphs.py``): a shape's
+  first dispatch runs eagerly, its second captures, every later one
+  replays; the graph gathers the features from the table, and the fused
+  Adam is capturable.  A new optimizer, restored leaves or new
+  parameters capture anew;
 - per-step dropout draws from a ``torch.Generator`` seeded from (epoch key,
   step index) through ``fold_in``, so a resumed run replays the same
   stream; the epoch key is a 64-bit integer (this package's own stream:
@@ -43,6 +49,7 @@ global shapes on every rank, and rank 0 alone writes them.
 from __future__ import annotations
 
 import copy
+import functools
 import time
 import warnings
 import weakref
@@ -62,6 +69,7 @@ from lrcn_tpu_torch.train.checkpoint import (OPT_KEYS, compute_dtype_of,
                                              make_position, resume_start,
                                              save_checkpoint)
 from lrcn_tpu_torch.train.metrics import MetricsLogger
+from lrcn_tpu_torch.utils import graphs
 
 _MASK64 = (1 << 64) - 1
 
@@ -76,19 +84,43 @@ def fold_in(key: int, data: int) -> int:
     return z ^ (z >> 31)
 
 
+def step_seed(key: int) -> int:
+    """The seed of the dropout generator of the step with key ``key``."""
+    return key & (_MASK64 >> 1)
+
+
 def step_generator(key: int, device: torch.device) -> torch.Generator:
     """The dropout generator of the step with key ``key``, on ``device``."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(key & (_MASK64 >> 1))
+    gen.manual_seed(step_seed(key))
     return gen
 
 
 def make_adam(params: list[torch.Tensor], lr: float) -> torch.optim.Adam:
-    """``optax.adam(lr)``'s defaults (b1 0.9, b2 0.999, eps 1e-8), fused
-    on CUDA."""
-    fused = params[0].device.type == "cuda"
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            fused=fused or None)
+    """``optax.adam(lr)``'s defaults (b1 0.9, b2 0.999, eps 1e-8), with
+    its state made now, as ``optax.adam(lr).init`` makes it (zero
+    moments, count 0), so that a captured step finds it at fixed
+    addresses.  Where a step may be captured (``graphs.enabled``: on a
+    card) it is the fused kernel, capturable on a card, in the eager and
+    the captured calls alike, so that both run one kernel."""
+    fused = graphs.enabled(params[0])
+    capturable = params[0].is_cuda
+    adam = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            fused=fused or None, capturable=capturable)
+    for p in params:        # what Adam's first step would make
+        adam.state[p] = {
+            "step": torch.zeros((), dtype=torch.float32,
+                                device=p.device if fused or capturable
+                                else "cpu"),
+            "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+    return adam
+
+
+def adam_state(adam: torch.optim.Adam) -> list[torch.Tensor]:
+    """Adam's moments and counts, which its step writes in place (part of a
+    captured step's signature)."""
+    return [t for state in adam.state.values()
+            for t in (state["exp_avg"], state["exp_avg_sq"], state["step"])]
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], gclip: float) -> None:
@@ -166,6 +198,11 @@ class Optimizer:
             clip_by_global_norm_([p.grad for p in self.params], self.gclip)
         self.adam.step()
 
+    def tensors(self) -> list[torch.Tensor]:
+        """The parameters and Adam's state, as a captured step reads
+        them."""
+        return self.params + adam_state(self.adam)
+
     def state_leaves(self) -> list[np.ndarray]:
         """Adam's state as optax's leaves: [count, mu..., nu...]."""
         return adam_leaves(self.adam, self.params)
@@ -175,6 +212,7 @@ class Optimizer:
         ``opt_leaves``, written by either package)."""
         load_adam_leaves(self.adam, self.params, OPT_KEYS, leaves,
                          "the decoder")
+        graphs.forget(self)
 
 
 class Trainer:
@@ -243,32 +281,55 @@ class Trainer:
 
     # --- one step ---
 
-    def _step(self, params: LRCNParams, opt: Optimizer, tokens, lengths,
-              feats, key: int) -> torch.Tensor:
-        """One optimizer step; returns the batch's loss on the device."""
-        if self._sharded is not None:
-            return self._sharded.step(params, opt, tokens, lengths, feats,
-                                      key).detach()
-        pdrop = self.cfg.dropout
+    def _step(self, params: LRCNParams, opt, tokens, lengths, feats,
+              key: int) -> torch.Tensor:
+        """One optimizer step under the mesh; returns the batch's loss on
+        the device."""
+        return self._sharded.step(params, opt, tokens, lengths, feats,
+                                  key).detach()
+
+    def _step_fn(self, params: LRCNParams, opt: Optimizer, tokens, lengths,
+                 feats, generator) -> torch.Tensor:
+        """One optimizer step, dropout drawn from ``generator``; returns the
+        batch's loss on the device and leaves no gradient behind."""
         opt.zero_grad()
-        loss = lrcn.loss_fn(
-            params, tokens, lengths, feats, pdrop=pdrop,
-            generator=(step_generator(key, self.device) if pdrop > 0
-                       else None),
-            compute_dtype=self.compute_dtype)
+        loss = lrcn.loss_fn(params, tokens, lengths, feats,
+                            pdrop=self.cfg.dropout, generator=generator,
+                            compute_dtype=self.compute_dtype)
         loss.backward()
         opt.step()
+        opt.zero_grad()
         return loss.detach()
+
+    def _dispatch_fn(self, params, opt, table, generators, tokens_k,
+                     lengths_k, rows_k) -> torch.Tensor:
+        """The eager body of :meth:`_dispatch`: K steps, step i's dropout
+        from ``generators[i]`` (none without dropout)."""
+        return torch.stack([
+            self._step_fn(params, opt, tokens_k[i], lengths_k[i],
+                          table[rows_k[i]],
+                          generators[i] if generators else None)
+            for i in range(tokens_k.shape[0])])
 
     def _dispatch(self, params, opt, tokens_k, lengths_k, rows_k, table,
                   base_key: int, offset: int) -> torch.Tensor:
         """K steps over stacked same-shape batches, features gathered from
         the device-resident ``table`` by row; the step keys derive from
-        (base_key, offset + i).  Returns the K losses, not read."""
-        return torch.stack([
-            self._step(params, opt, tokens_k[i], lengths_k[i],
-                       table[rows_k[i]], fold_in(base_key, offset + i))
-            for i in range(tokens_k.shape[0])])
+        (base_key, offset + i).  On a card one graph replay (eager at a
+        shape's first dispatch).  Returns the K losses, not read."""
+        keys = [fold_in(base_key, offset + i)
+                for i in range(tokens_k.shape[0])]
+        if self._sharded is not None:
+            return torch.stack([
+                self._step(params, opt, tokens_k[i], lengths_k[i],
+                           table[rows_k[i]], key)
+                for i, key in enumerate(keys)])
+        return graphs.step(
+            opt, ("dispatch", self.cfg.dropout, self.compute_dtype),
+            functools.partial(self._dispatch_fn, params, opt, table),
+            (tokens_k, lengths_k, rows_k), reads=(*opt.tensors(), table),
+            seeds=([step_seed(k) for k in keys] if self.cfg.dropout > 0
+                   else ()))
 
     # --- host loop ---
 
@@ -377,9 +438,8 @@ class Trainer:
         skip = max(0, start_dispatch - n_chunks)
         base = rng_key
         for j in range(skip, len(order)):
-            _, (tokens, lengths, rows) = self._stacked([order[j]], store)
-            loss = self._step(params, opt, tokens[0], lengths[0],
-                              table[rows[0]], fold_in(base, j))
+            _, dev = self._stacked([order[j]], store)
+            loss = self._dispatch(params, opt, *dev, table, base, j)[0]
             tokens_seen += int(np.sum(np.maximum(order[j].lengths, 0)))
             if log_every and j % log_every == 0:
                 self.metrics.log(event="train", batch=j,
@@ -392,13 +452,31 @@ class Trainer:
                          words_per_sec=words_per_sec())
         return params, opt, rng_key
 
-    def _eval(self, params, tokens, lengths, feats):
-        """(NLL sum, token count) of one batch, over the mesh's global
-        batch under a mesh."""
+    def _eval_fn(self, params, table, tokens_k, lengths_k, rows_k
+                 ) -> torch.Tensor:
+        """(NLL sum, token count) over K stacked batches, one batch after
+        another."""
+        part = torch.zeros(2, device=tokens_k.device)
+        for i in range(tokens_k.shape[0]):
+            part = part + torch.stack(lrcn.loss_total_count(
+                params, tokens_k[i], lengths_k[i], table[rows_k[i]],
+                compute_dtype=self.compute_dtype))
+        return part
+
+    def _eval(self, params, tokens_k, lengths_k, rows_k, table
+              ) -> torch.Tensor:
+        """(NLL sum, token count) of K stacked batches, over the mesh's
+        global batches under a mesh; on a card one graph replay."""
         if self._sharded is not None:
-            return self._sharded.eval_batch(params, tokens, lengths, feats)
-        return lrcn.loss_total_count(params, tokens, lengths, feats,
-                                     compute_dtype=self.compute_dtype)
+            part = torch.zeros(2, device=self.device)
+            for i in range(tokens_k.shape[0]):
+                part = part + torch.stack(self._sharded.eval_batch(
+                    params, tokens_k[i], lengths_k[i], table[rows_k[i]]))
+            return part
+        return graphs.run(
+            params, ("eval", self.compute_dtype),
+            functools.partial(self._eval_fn, params, table),
+            (tokens_k, lengths_k, rows_k), reads=(table,))
 
     @torch.no_grad()
     def average_loss(self, params: LRCNParams, batches: Sequence[Batch],
@@ -416,12 +494,8 @@ class Trainer:
             chunks += [[b] for b in single]
         partials = []
         for chunk in chunks:
-            _, (tokens_k, lengths_k, rows_k) = self._stacked(chunk, store)
-            part = torch.zeros(2, device=self.device)
-            for i in range(len(chunk)):
-                part = part + torch.stack(self._eval(
-                    params, tokens_k[i], lengths_k[i], table[rows_k[i]]))
-            partials.append(part)
+            _, dev = self._stacked(chunk, store)
+            partials.append(self._eval(params, *dev, table))
         total, count = 0.0, 0.0
         for t, c in (p.tolist() for p in partials):
             total += t

@@ -7,12 +7,16 @@ on.  Here ``torch.cuda``'s
 graph API is stubbed (``fake_cuda``), the way ``test_torch_kernels.py``
 stubs the kernels' library: ``graphs.enabled`` lets CPU tensors take the
 graph path, a "capture" records every aten and ``lrcn::`` op the body
-runs (a ``TorchDispatchMode``), and a "replay" runs the recorded ops
-again and writes each op's result into the tensor it produced at
-capture, so a replay reads the static inputs and overwrites the static
-outputs as a CUDA graph does.  Streams and pools are tokens; the stream
-a "capture" and each "replay" ran on is kept.  The
-searches' results are held against the eager bodies and against JAX.
+runs (a ``TorchDispatchMode``) and then undoes what it ran (every
+storage an op wrote and every generator it drew from are put back), as
+a CUDA graph's capture executes nothing, and a "replay" runs the
+recorded ops again and writes each op's result into the tensor it
+produced at capture, so a replay reads the static inputs and overwrites
+the static outputs as a CUDA graph does.  A capture that waits for the
+device (``.item()``) raises, as it does on a card.  Streams and pools
+are tokens; the stream a "capture" and each "replay" ran on is kept.
+The searches' results are held against the eager bodies and against
+JAX.
 """
 
 import contextlib
@@ -52,17 +56,32 @@ STEPS = MAX_WORDS + 1
 
 
 class _Recorder(TorchDispatchMode):
-    """Every op that runs while it is on, with its arguments and result."""
+    """Every op that runs while it is on, with its arguments and result,
+    and each storage an op may write as it was before the first such op
+    (``undo`` puts them back)."""
 
     def __init__(self):
         super().__init__()
         self.ops = []
+        self.saved = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise RuntimeError("a captured body waited for the device "
+                               "(stub)")
+        if func._schema.is_mutable:
+            for t in tree_leaves((args, kwargs)):
+                if isinstance(t, torch.Tensor):
+                    st = t.untyped_storage()
+                    self.saved.setdefault(st.data_ptr(), (st, st.clone()))
         out = func(*args, **kwargs)
         self.ops.append((func, args, kwargs, out))
         return out
+
+    def undo(self) -> None:
+        for st, before in self.saved.values():
+            st.copy_(before)
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -79,6 +98,10 @@ class FakeGraph:
         self.ops = None
         self.stream = None          # the stream it was captured on
         self.replayed_on = []
+        self.generators = []
+
+    def register_generator_state(self, generator) -> None:
+        self.generators.append(generator)
 
     @property
     def replays(self):
@@ -86,6 +109,11 @@ class FakeGraph:
 
     def replay(self):
         self.replayed_on.append(torch.cuda.current_stream())
+        # a replay runs the kernels alone: no autograd
+        with torch._C._AutoDispatchBelowAutograd():
+            self._run()
+
+    def _run(self):
         for func, args, kwargs, out in self.ops:
             with launches.recording():
                 new = func(*args, **kwargs)
@@ -131,12 +159,17 @@ def _stub_graph_api(monkeypatch, pool_streams=None):
         state.modes.append(capture_error_mode)
         state.captured_on.append(stream)
         recorder = _Recorder()
+        drawn = [*cuda_graph.generators, torch.default_generator]
+        before = [g.get_state() for g in drawn]
         outer, state.current = state.current, stream
         try:
             with recorder:
                 yield
         finally:
             state.current = outer
+            recorder.undo()                 # a capture executes nothing
+            for g, st in zip(drawn, before):
+                g.set_state(st)
         if state.fail:
             raise RuntimeError("capture failed (stub)")
         cuda_graph.ops, cuda_graph.stream = recorder.ops, stream
