@@ -9,6 +9,7 @@
     python3 chip_smoke.py --mesh       # instead: phases 1, 2 and 16 alone
     python3 chip_smoke.py --graphs     # instead: phases 1, 2, 17 and 18
                                        # alone
+    python3 chip_smoke.py --examples   # instead: phases 1, 2 and 19 alone
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero.  Every search, encoder batch, sampling search, training
@@ -198,7 +199,25 @@ and their timings warm each signature up twice:
    launches; for each path eager against graphed host wall, host enqueue
    and device ms, the first and capturing calls' seconds, the memory the
    capture kept and its return once its owner is dropped.  ``--graphs``
-   exports the three artifacts itself.
+   exports the three artifacts itself;
+19. the port's examples and the runbook chain, each as a user runs it, on
+   the default device (the card): ``examples.synthetic_end_to_end.main``
+   (train, generate and eval through ``lrcn_tpu_torch.cli.main``; its
+   BLEU-4 >= 0.90 gate; BLEU-1..4 and each leg's seconds; no kernel in
+   ``train``, the LSTM and top-k kernels in ``generate`` at the routing
+   functions' routes; the trained checkpoint's f32 ``generate`` on the
+   card against ``--device cpu``, >= 99% equal lines and the rest
+   near-ties), ``examples.serving_quickstart.main`` (16 concurrent
+   requests over HTTP, all answered; LSTM launches on the fma route,
+   top-k on the block route at V=50; its service's 20 captions on the
+   card equal to the CPU's at f32; no graph alive after ``close``) and
+   tests/test_runbook.py's chain (a MatConvNet file of 8 channels a conv
+   written with scipy, 32 images by id through ``synthetic_pixels``,
+   ``extract-features --cnn``, ``train``, ``generate`` and ``eval`` at
+   bf16; 13 conv launches an encoder batch at ``conv3x3_route``'s
+   routes).  Phases 3, 4 and 7 hold the kernels at these paths' shapes
+   (``EXAMPLE_LSTM`` at bf16, ``EXAMPLE_LSTM_F32`` at f32,
+   ``EXAMPLE_VOCABS``, the runbook's convs).
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
@@ -418,6 +437,27 @@ GRAPH_ROWS = 256
 #  cuBLAS's workspace for a stream new to it (32 MiB on Hopper), twice
 GRAPH_KEPT_MB = 64
 
+# the port's examples and the runbook chain (phase 19): the end-to-end
+# example and the serving quickstart (``lrcn_tpu_torch/examples/``) as a
+# user runs them, and tests/test_runbook.py's chain (hidden 24, embed 16,
+# a MatConvNet file of 8 channels a conv and fc 24, 32 images).  Phases
+# 3, 4 and 7 hold the kernels at their shapes: the LSTM's layer-1 (X, H)
+# (layer 2 takes X = 2 ceil(H / 2)) at each path's search rows (e2e: a
+# 32-image batch x beam 2; quickstart: 1-4 groups of 8 x beam 3; runbook:
+# 16 x beam 2; tests/test_real_captions.py's width: 64 x beam 3), the
+# top-k's (V, rows) and the runbook's convs at its encoder batch
+EXAMPLE_LSTM = {(24, 32): (64, 24, 48, 72, 96), (16, 24): (32,),
+                (64, 96): (192,)}
+# the quickstart's service and phase 19's f32 generate of the e2e
+# checkpoint run (X, H) = (24, 32) at f32, the fma route: 1-4 groups of
+# 8 x beam 3, and 24 ids x beam 2
+EXAMPLE_LSTM_F32 = {(24, 32): (24, 48, 72, 96)}
+EXAMPLE_VOCABS = ((22, 64), (25, 64), (50, 96), (13, 32))
+RUNBOOK_WIDTH, RUNBOOK_FC, RUNBOOK_BATCH = 8, 24, 8
+RUNBOOK_IMAGES = 32
+RUNBOOK_WORDS = ["man", "dog", "park", "red", "ball", "runs", "sits", "big",
+                 "small", "tree"]
+
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"bf16": 989e12, "f32": 67e12}
@@ -617,7 +657,8 @@ def lstm_bound(rows: int, x_dim: int, h_dim: int, w_bytes: int
 def phase_lstm(tree, rng) -> dict:
     from lrcn_tpu_torch.ops.kernels import (build, fused_lstm_step,
                                             lstm_step_reference)
-    from lrcn_tpu_torch.ops.kernels.lstm_step import ROUTES, lstm_step_cuda
+    from lrcn_tpu_torch.ops.kernels.lstm_step import (ROUTES, lstm_step_cuda,
+                                                      lstm_step_route)
 
     rows = DECODE_BATCH * BEAM
     cases = [(f"layer{n} {dtype}".replace("torch.", ""),
@@ -644,6 +685,22 @@ def phase_lstm(tree, rng) -> dict:
     cases += [(f"layer{n} bfloat16 {r} rows untimed", tree[f"lstm{n}/w"],
                tree[f"lstm{n}/b"], r, torch.bfloat16, big)
               for r in PARTIAL_ROWS for n in (1, 2)]
+    # the examples' and the runbook's widths (phase 19), each layer at its
+    # paths' row counts: gate tiles far narrower than the wgmma route's
+    # 4 x 64 columns; checked and not timed
+    small = np.random.default_rng(SEED + 19)
+    for dtype, widths in ((torch.bfloat16, EXAMPLE_LSTM),
+                          (torch.float32, EXAMPLE_LSTM_F32)):
+        for (x1, h_dim), rows_list in widths.items():
+            for n, x_dim in ((1, x1), (2, 2 * (-(-h_dim // 2)))):
+                w_small = (small.standard_normal((x_dim + h_dim, 4 * h_dim))
+                           * (6.0 / (x_dim + 5 * h_dim)) ** 0.5).astype(
+                    np.float32)
+                b_small = np.zeros(4 * h_dim, np.float32)
+                b_small[:h_dim] = 1.0
+                cases += [(f"examples layer{n} X={x_dim} H={h_dim} "
+                           f"{str(dtype)[6:]} {r} rows untimed", w_small,
+                           b_small, r, dtype, small) for r in rows_list]
     worst, times = 0.0, {}
     for label, w_np, b_np, b_dim, dtype, gen in cases:
         h_dim = b_np.shape[0] // 4
@@ -657,7 +714,9 @@ def phase_lstm(tree, rng) -> dict:
         h_k, c_k = fused_lstm_step(w, b, h, c, x)
         routes = route_delta(fused_lstm_step, before)
         want = ("fma" if dtype == torch.float32
-                else "wmma" if label.startswith("ragged") else "wgmma")
+                else "wmma" if label.startswith("ragged")
+                else lstm_step_route(w, h, c, x)
+                if label.startswith("examples") else "wgmma")
         check(routes == {want: 1}, f"lstm_step {label}: routes {routes}, "
                                    f"want {want}")
         h_p, c_p = lstm_step_reference(w, b, h, c, x)
@@ -793,6 +852,16 @@ def phase_topk(rng) -> dict:
              ("misaligned view", misaligned, BEAM),
              ("R=1", beam[:1].clone(), BEAM), ("R=3", beam[:3].clone(), BEAM),
              ("k=V", cuda(own.standard_normal((3, 100))), 100)]
+    # the examples' and the runbook's vocabularies at their beam widths
+    # (phase 19): most of a block's threads hold no element; one tie-heavy
+    # input whose rows hold a handful of values
+    small = np.random.default_rng(SEED + 19)
+    for v, rows_v in EXAMPLE_VOCABS:
+        x = cuda(small.standard_normal((rows_v, v)) * 3)
+        cases += [(f"examples V={v} k={k}", x, k) for k in (2, 3)]
+    v, rows_v = EXAMPLE_VOCABS[0]
+    cases.append((f"examples V={v} tie-heavy", cuda(small.integers(
+        -2, 2, (rows_v, v))), 3))
     worst = 0.0
     for label, x, k in cases:
         want = topk_logsumexp_reference(x, k)
@@ -1094,6 +1163,13 @@ def phase_conv() -> dict:
               for dtype in (torch.bfloat16, torch.float32)
               for h, c, f, _ in VGG_CONVS
               if dtype == torch.bfloat16 or (h, c, f) in F32_CONVS]
+    # the runbook's width-scaled .mat (phase 19): 8 channels a conv, an
+    # encoder batch of 8; checked and not timed
+    cases += [(f"B={RUNBOOK_BATCH} runbook {h}x{h}x{c}->{f} bfloat16",
+               (RUNBOOK_BATCH, h, h, c, f), torch.bfloat16, True)
+              for h, c, f in ((224, 3, RUNBOOK_WIDTH),
+                              (224, RUNBOOK_WIDTH, RUNBOOK_WIDTH),
+                              (14, RUNBOOK_WIDTH, RUNBOOK_WIDTH))]
     worst, times = 0.0, {}
     for label, (b_dim, h, w_dim, c, f), dtype, relu in cases:
         x = randn(b_dim, h, w_dim, c)
@@ -2355,6 +2431,59 @@ def timed(owner, name: str, log: list):
         setattr(owner, name, real)
 
 
+def f32_card_against_cpu(run: CLIRun, gen: list, n_ids: int, loadfile: str,
+                         store, beam: int, max_words: int, prefix: str,
+                         score_atol: float) -> tuple[list, list, list]:
+    """``generate`` (the argv ``gen``, which captions ``n_ids`` ids) of the
+    checkpoint ``loadfile`` at f32 on the card (kernels) and with
+    ``--device cpu`` (plain): ``n_ids`` lines from each, the same ids, at
+    least CAPTION_AGREEMENT of the lines equal,
+    and every line that differs a near-tie, the same search by hand on
+    both devices giving scores within ``score_atol``.  Returns the card's
+    lines, the indices that differ and their score gaps."""
+    from lrcn_tpu_torch.decode.beam import beam_search
+    from lrcn_tpu_torch.decode.writer import detokenize_batch
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    out = {}
+    for where, flags in (("card", None), ("cpu", ["--device", "cpu"])):
+        path = f"{prefix}_{where}"
+        run(None, [*gen, "--loadfile", loadfile, "--compute-dtype",
+                   "float32", "--out", path, "--ids-out", path + "_ids"],
+            flags)
+        with open(path) as f, open(path + "_ids") as g:
+            out[where] = (f.read().splitlines(), g.read())
+    n = len(out["card"][0])
+    differ = [i for i, (a, b) in enumerate(zip(out["card"][0],
+                                               out["cpu"][0])) if a != b]
+    check(n == n_ids == len(out["cpu"][0]),
+          f"generate f32: {n} card and {len(out['cpu'][0])} CPU lines, "
+          f"want {n_ids}")
+    check(out["card"][1] == out["cpu"][1]
+          and len(differ) <= (1 - CAPTION_AGREEMENT) * n,
+          f"generate f32 card vs CPU: {len(differ)}/{n} lines differ")
+    gaps = []
+    if differ:          # the same searches by hand: near-ties only
+        rows = [int(x) for x in out["card"][1].split()]
+        feats = torch.from_numpy(store.gather([rows[i] for i in differ]))
+        got = {}
+        for device in ("cuda", "cpu"):
+            dec = load_checkpoint(loadfile, device, torch.float32)
+            tokens, scores = beam_search(dec["decoder"], feats.to(device),
+                                         beam_width=beam,
+                                         max_words=max_words)
+            got[device] = (detokenize_batch(tokens.cpu().numpy(),
+                                            dec["vocab"]), scores.cpu())
+        check(got["cuda"][0] == [out["card"][0][i] for i in differ]
+              and got["cpu"][0] == [out["cpu"][0][i] for i in differ],
+              "generate f32: the CLI's lines differ from beam_search's")
+        gaps = (got["cuda"][1] - got["cpu"][1]).abs().tolist()
+        check(max(gaps) <= score_atol,
+              f"generate f32 card vs CPU: differing lines' score gaps "
+              f"{gaps}")
+    return out["card"][0], differ, gaps
+
+
 def http_request(conn, method: str, path: str, body=None, headers=None):
     """(status, JSON reply) over a kept-alive ``http.client`` connection."""
     data = body if isinstance(body, bytes) or body is None \
@@ -2381,8 +2510,6 @@ def phase_cli(smi: str) -> dict[str, dict]:
                                              effective_batch_size)
     from lrcn_tpu_torch.data.feature_store import FeatureStore
     from lrcn_tpu_torch.decode import writer
-    from lrcn_tpu_torch.decode.beam import beam_search
-    from lrcn_tpu_torch.decode.writer import detokenize_batch
     from lrcn_tpu_torch.models.vgg import CONV_NAMES
     from lrcn_tpu_torch.serve import make_server
     from lrcn_tpu_torch.serve.http import MAX_BODY_BYTES
@@ -2512,47 +2639,17 @@ def phase_cli(smi: str) -> dict[str, dict]:
     tree = random_tree(np.random.default_rng(SEED + 14))
     tree["w_out"] *= CLI_F32_SHARPEN
     write_checkpoint(sharp, tree, cfg)
-    out = {}
-    for where, flags in (("card", None), ("cpu", ["--device", "cpu"])):
-        path = os.path.join(work, f"f32_{where}")
-        run(None, [*gen, "--loadfile", sharp, "--compute-dtype", "float32",
-                   "--capnumber", str(CLI_F32_IDS), "--out", path,
-                   "--ids-out", path + "_ids"], flags)
-        with open(path) as f, open(path + "_ids") as g:
-            out[where] = (f.read().splitlines(), g.read())
-    differ = [i for i, (a, b) in enumerate(zip(out["card"][0],
-                                               out["cpu"][0])) if a != b]
-    check(out["card"][1] == out["cpu"][1]
-          and len(out["card"][0]) == CLI_F32_IDS
-          and len(differ) <= (1 - CAPTION_AGREEMENT) * CLI_F32_IDS,
-          f"generate f32 card vs CPU: {len(differ)}/{CLI_F32_IDS} lines "
-          f"differ")
-    gaps = []
-    if differ:          # the same searches by hand: near-ties only
-        rows = [int(x) for x in out["card"][1].split()]
-        feats = torch.from_numpy(store.gather([rows[i] for i in differ]))
-        got = {}
-        for device in ("cuda", "cpu"):
-            dec = load_checkpoint(sharp, device, torch.float32)
-            tokens, scores = beam_search(dec["decoder"], feats.to(device),
-                                         beam_width=BEAM,
-                                         max_words=MAX_WORDS)
-            got[device] = (detokenize_batch(tokens.cpu().numpy(),
-                                            dec["vocab"]), scores.cpu())
-        check(got["cuda"][0] == [out["card"][0][i] for i in differ]
-              and got["cpu"][0] == [out["cpu"][0][i] for i in differ],
-              "generate f32: the CLI's lines differ from beam_search's")
-        gaps = (got["cuda"][1] - got["cpu"][1]).abs().tolist()
-        check(max(gaps) <= SCORE_ATOL * CLI_F32_SHARPEN,
-              f"generate f32 card vs CPU: differing lines' score gaps "
-              f"{gaps}")
+    lines, differ, gaps = f32_card_against_cpu(
+        run, [*gen, "--capnumber", str(CLI_F32_IDS)], CLI_F32_IDS, sharp,
+        store, BEAM, MAX_WORDS, os.path.join(work, "f32"),
+        SCORE_ATOL * CLI_F32_SHARPEN)
     print(f"[13 cli] generate --compute-dtype float32 (a random checkpoint, "
           f"w_out x {CLI_F32_SHARPEN}), {CLI_F32_IDS} ids, card (kernels) "
           f"vs --device cpu (plain): {CLI_F32_IDS - len(differ)}/"
           f"{CLI_F32_IDS} lines equal (need {CAPTION_AGREEMENT}), the "
           f"others near-ties (score gaps {[round(g, 6) for g in gaps]}, tol "
           f"{SCORE_ATOL * CLI_F32_SHARPEN}); ids equal; "
-          f"{len(set(out['card'][0]))} distinct lines")
+          f"{len(set(lines))} distinct lines")
 
     mark("f32")
 
@@ -4837,6 +4934,295 @@ def phase_dispatch(smi: str, rng) -> dict[str, int]:
     return replays
 
 
+def write_small_mat(path: str, rng: np.random.Generator) -> list[tuple]:
+    """A MatConvNet VGG-16 file (the beta16+ layout) written with scipy:
+    ``RUNBOOK_WIDTH`` channels a conv and fc6/fc7 of ``RUNBOOK_FC``, the
+    weights scaled as tests/test_vgg.py's width-scaled file scales them.
+    Returns the 13 convs' HWIO weight shapes."""
+    from scipy.io import savemat
+
+    from lrcn_tpu_torch.models.vgg import VGG16_LAYOUT
+
+    layers, convs, c_in = [], [], 3
+
+    def add(name, shape):
+        w = rng.standard_normal(shape).astype(np.float32) * np.float32(0.05)
+        b = np.zeros((shape[-1], 1), np.float32)
+        layers.append({"name": name, "type": "conv",
+                       "weights": np.array([w, b], dtype=object)})
+
+    for entry in VGG16_LAYOUT:
+        if entry == "pool":
+            continue
+        convs.append((3, 3, c_in, RUNBOOK_WIDTH))
+        add(entry[0], convs[-1])
+        c_in = RUNBOOK_WIDTH
+    add("fc6", (7, 7, c_in, RUNBOOK_FC))
+    add("fc7", (1, 1, RUNBOOK_FC, RUNBOOK_FC))
+    savemat(path, {"layers": np.array(layers, dtype=object),
+                   "meta": {"normalization": {"averageImage": np.full(
+                       (224, 224, 3), 110, np.float32)}}})
+    return convs
+
+
+@contextmanager
+def counted_legs(module, names, legs: dict):
+    """Wrap the functions ``names`` of ``module``: each call zeroes the
+    three kernels' counters and, after it, puts its seconds (the card
+    synchronized at both ends), launches and launches by route into
+    ``legs[name]``."""
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp)
+
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    real = {name: getattr(module, name) for name in names}
+
+    def wrap(name):
+        def leg(*args, **kwargs):
+            reset_counts(*fns)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            legs[name] = {"seconds": time.perf_counter() - t0,
+                          "counts": read_counts(*fns),
+                          "routes": {fn.__name__: _routes_used(fn)
+                                     for fn in fns}}
+            return out
+        return leg
+
+    for name in names:
+        setattr(module, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
+def _summed(counts: list[dict]) -> dict[str, int]:
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def phase_examples(smi: str) -> dict[str, dict]:
+    """The port's examples and the runbook chain on the card, each through
+    the entry points a user calls, on the default device: the end-to-end
+    example (its BLEU-4 gate; no kernel in ``train``; the LSTM and top-k
+    kernels in ``generate`` at their routes; f32 ``generate`` on the card
+    against the CPU), the serving quickstart (16 concurrent requests; its
+    service's captions on the card equal to the CPU's at f32; no graph
+    alive after ``close``) and tests/test_runbook.py's chain with the
+    image decode replaced by arrays by id (the conv kernel in
+    ``extract-features``).  Returns each path's launches."""
+    from lrcn_tpu_torch import cli
+    from lrcn_tpu_torch.data.feature_store import FeatureStore
+    from lrcn_tpu_torch.examples import serving_quickstart as quick
+    from lrcn_tpu_torch.examples import synthetic_end_to_end as e2e
+    from lrcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    work = os.path.join(WORK, "examples")
+    os.makedirs(work, exist_ok=True)
+    by_path: dict[str, dict] = {}
+    marks = [("", time.perf_counter())]
+
+    def mark(label: str) -> None:
+        marks.append((label, time.perf_counter()))
+
+    def no_kernels(leg: dict, what: str) -> None:
+        check(sum(leg["counts"].values()) == 0,
+              f"{what} launched hand-written kernels: {leg['counts']}")
+
+    def search_routes(got: dict, cfg, n_images: int, batch: int | None,
+                      beam: int, words: int, what: str) -> None:
+        """``got`` (launches by route) is what the searches of ``n_images``
+        at ``beam`` and ``--generate words`` give: two LSTM launches and
+        one top-k launch a step, at the routing functions' routes."""
+        b_dim, depth = cli.decode_geometry(n_images, batch, None)
+        n_search = -(-n_images // (b_dim * depth))
+        want = expected_routes(cfg, [], b_dim * depth * beam, beam)
+        steps = (words + 1) * n_search
+        want = {"fused_conv3x3_relu": {},
+                "fused_lstm_step": _scaled(want["fused_lstm_step"], steps),
+                "topk_logsumexp": _scaled(want["topk_logsumexp"], steps)}
+        check(got == want, f"{what}: launches by route {got}, want {want}")
+
+    # 1. the end-to-end example, as `python -m ...synthetic_end_to_end`
+    #    runs it: no device argument, so the card
+    e2e_dir = os.path.join(work, "e2e")
+    legs: dict = {}
+    with counted_legs(e2e, ("train", "generate", "score"), legs):
+        result = e2e.main(e2e_dir)
+    check(result.bleu[3] >= e2e.BLEU4_GATE, f"e2e BLEU-4 {result.bleu}")
+    no_kernels(legs["train"], "e2e train")
+    no_kernels(legs["score"], "e2e score")
+    ckpt = os.path.join(e2e_dir, "ckpt")
+    cfg = load_checkpoint(ckpt, "cpu")["cfg"]
+    search_routes(legs["generate"]["routes"], cfg, 24, None, 2, 12,
+                  "e2e generate")
+    by_path["examples e2e (phase 19)"] = _summed(
+        [leg["counts"] for leg in legs.values()])
+    print(f"[19 examples] e2e (hidden {cfg.hidden}, embed {cfg.embed}, "
+          f"vocab {cfg.vocab_size}, bf16): BLEU-1..4 "
+          f"{[round(100 * b, 2) for b in result.bleu]} (gate BLEU-4 >= "
+          f"{e2e.BLEU4_GATE}); seconds train "
+          f"{legs['train']['seconds']:.2f}, generate "
+          f"{legs['generate']['seconds']:.2f}, eval "
+          f"{legs['score']['seconds']:.3f} on {smi}; generate's launches by "
+          f"route {legs['generate']['routes']}; train and eval none")
+    mark("e2e")
+
+    # the trained checkpoint at f32: the kernels on the card against the
+    # plain path on the CPU
+    run = CLIRun()
+    store = FeatureStore.load(os.path.join(e2e_dir, "val_feats"))
+    lines, differ, gaps = f32_card_against_cpu(
+        run, ["generate", "--features", os.path.join(e2e_dir, "val_feats"),
+              "--capnumber", "24", "--generate", "12", "--beam_width", "2",
+              "--seed", "7"], 24, ckpt, store, 2, 12,
+        os.path.join(e2e_dir, "f32"), SCORE_ATOL)
+    print(f"[19 examples] e2e generate --compute-dtype float32, card "
+          f"(kernels) vs --device cpu (plain): {len(lines) - len(differ)}/"
+          f"{len(lines)} lines equal (need {CAPTION_AGREEMENT}), score gaps "
+          f"of the others {gaps}")
+    mark("e2e f32")
+
+    # 2. the serving quickstart on the card; its service at f32 on the card
+    #    and on the CPU
+    fns = run.fns
+    reset_counts(*fns)
+    t0 = time.perf_counter()
+    served = quick.main()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(*fns)
+    routes = {fn.__name__: _routes_used(fn) for fn in fns}
+    check(len(served["captions"]) == quick.N_REQUESTS
+          and served["healthz"] == {"ok": True, "platform": "cuda"}
+          and served["stats"]["decode_ids"]["errors"] == 0,
+          f"quickstart: {len(served['captions'])} captions, "
+          f"{served['healthz']}")
+    by_path["examples quickstart (phase 19)"] = counts
+    services = {d: quick.build_service(quick.CONFIG, device=d)
+                for d in ("cuda", "cpu")}
+    try:
+        caps = {d: s.caption_ids(list(range(quick.N_IDS)))
+                for d, s in services.items()}
+        per_search = services["cuda"].max_words + 1
+    finally:
+        for service in services.values():
+            service.close()
+    del services
+    # f32: the LSTM on the fma route, the top-k at V=50 on the block route;
+    # a search runs max_words + 1 steps
+    searches = counts["topk_logsumexp"] // per_search
+    check(searches > 0 and counts["topk_logsumexp"] == per_search * searches
+          and routes == {"fused_conv3x3_relu": {},
+                         "fused_lstm_step": {"fma": 2 * per_search
+                                             * searches},
+                         "topk_logsumexp": {"block": per_search * searches}},
+          f"quickstart: launches by route {routes}")
+    check(caps["cuda"] == caps["cpu"],
+          f"quickstart f32: {sum(a != b for a, b in zip(*caps.values()))}/"
+          f"{quick.N_IDS} captions differ between the card and the CPU")
+    torch.cuda.empty_cache()
+    alive = live_graphs()
+    check(alive == 0, f"{alive} graphs alive after the quickstart closed")
+    print(f"[19 examples] quickstart (f32, beam 3, decode batch 8): "
+          f"{quick.N_REQUESTS} concurrent requests answered 200 in "
+          f"{seconds:.2f} s with its warm-up on {smi}; launches by route "
+          f"{routes} ({searches} searches); /stats "
+          f"{json.dumps(served['stats']['decode_ids'])}; "
+          f"{quick.N_IDS}/{quick.N_IDS} captions equal card vs CPU; no "
+          f"graph alive after close()")
+    mark("quickstart")
+
+    # 3. tests/test_runbook.py's chain at bf16: a MatConvNet file, 32
+    #    images (arrays by id: no PIL or libjpeg here), COCO jsons
+    rb = os.path.join(work, "runbook")
+    img_dir = os.path.join(rb, "train2014")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(SEED + 19)
+    ids = [61000 + i for i in range(RUNBOOK_IMAGES)]
+    pixels = {i: rng.integers(0, 256, (224, 224, 3), np.uint8) for i in ids}
+    for i in ids:
+        open(os.path.join(img_dir, f"COCO_train2014_{i:012d}.jpg"),
+             "wb").close()
+    jsons = []
+    for name in ("train", "val"):
+        jsons.append(os.path.join(rb, f"captions_{name}2014.json"))
+        with open(jsons[-1], "w") as f:
+            json.dump({"annotations": [
+                {"image_id": i,
+                 "caption": " ".join(rng.choice(RUNBOOK_WORDS, 5)) + " ."}
+                for i in ids for _ in range(5)]}, f)
+    mat = os.path.join(rb, "imagenet-vgg-verydeep-16.mat")
+    convs = write_small_mat(mat, rng)
+    feats, ckpt = os.path.join(rb, "feats"), os.path.join(rb, "ckpt")
+    cand, cand_ids = os.path.join(rb, "cands"), os.path.join(rb, "ids")
+    chain = [
+        ("extract", ["extract-features", "--cnn", mat, "--images", img_dir,
+                     "--out", feats, "--batch-size", str(RUNBOOK_BATCH),
+                     "--scan-depth", "2"]),
+        ("train", ["train", "--datafiles", *jsons, "--features", feats,
+                   "--val-features", feats, "--savefile", ckpt, "--epochs",
+                   "2", "--batchsize", "8", "--hidden", "24", "24",
+                   "--embed", "16", "--seed", "9", "--dropout", "0.0"]),
+        ("generate", ["generate", "--loadfile", ckpt, "--features", feats,
+                      "--datafiles", *jsons, "--capnumber", "16",
+                      "--generate", "8", "--beam_width", "2",
+                      "--batch-size", "16", "--out", cand, "--ids-out",
+                      cand_ids, "--seed", "7"]),
+        ("eval", ["eval", "--candidates", cand, "--candidate-ids", cand_ids,
+                  "--annotations", jsons[1], "--refs-dir",
+                  os.path.join(rb, "refs")])]
+    walls, printed = {}, ""
+    with synthetic_pixels(pixels):
+        for name, argv in chain:
+            printed, walls[name] = run(f"runbook {name}", argv)
+    store = FeatureStore.load(feats)
+    check(sorted(store.ids()) == ids and store.dim == RUNBOOK_FC
+          and bool(np.isfinite(store.table()).all()),
+          f"runbook extract-features: {len(store)} rows of {store.dim}")
+    conv = expected_routes(cfg, convs, 1, 2)["fused_conv3x3_relu"]
+    check(run.routes["runbook extract"] == {
+              "fused_conv3x3_relu": _scaled(conv,
+                                            RUNBOOK_IMAGES // RUNBOOK_BATCH),
+              "fused_lstm_step": {}, "topk_logsumexp": {}},
+          f"runbook extract-features: launches by route "
+          f"{run.routes['runbook extract']}, want {conv} x "
+          f"{RUNBOOK_IMAGES // RUNBOOK_BATCH}")
+    check(sum(run.counts["runbook train"].values()) == 0
+          and sum(run.counts["runbook eval"].values()) == 0,
+          f"runbook train/eval launched kernels: "
+          f"{run.counts['runbook train']}, {run.counts['runbook eval']}")
+    rb_cfg = load_checkpoint(ckpt, "cpu")["cfg"]
+    search_routes(run.routes["runbook generate"], rb_cfg, 16, 16, 2, 8,
+                  "runbook generate")
+    with open(cand) as f:
+        n_lines = len(f.read().splitlines())
+    check(n_lines == 16 and printed.startswith("BLEU = "),
+          f"runbook: {n_lines} candidates, eval printed {printed!r}")
+    by_path["runbook (phase 19)"] = _summed(
+        [run.counts[f"runbook {name}"] for name, _ in chain])
+    print(f"[19 examples] runbook (MatConvNet .mat of {RUNBOOK_WIDTH} "
+          f"channels a conv, fc {RUNBOOK_FC}; hidden {rb_cfg.hidden}, embed "
+          f"{rb_cfg.embed}, vocab {rb_cfg.vocab_size}; bf16; {RUNBOOK_IMAGES} "
+          f"images by id): seconds " + ", ".join(
+              f"{name} {walls[name]:.2f}" for name, _ in chain)
+          + f" on {smi}; launches by route: extract-features "
+          f"{run.routes['runbook extract']}, generate "
+          f"{run.routes['runbook generate']}, train and eval none; eval "
+          f"{printed.strip()}")
+    mark("runbook")
+    del run
+    torch.cuda.empty_cache()
+    alive = live_graphs()
+    check(alive == 0, f"{alive} graphs alive after phase 19")
+    print("[19 examples] seconds by step: " + ", ".join(
+        f"{label} {t - marks[i][1]:.1f}"
+        for i, (label, t) in enumerate(marks[1:])))
+    return by_path
+
+
 @torch.inference_mode()
 def path_score_error(decoder, feats, tokens, scores) -> float:
     """How far each row's search score lies from the plain decode step's
@@ -5032,6 +5418,13 @@ def main() -> None:
         print(json.dumps(replays))
         shutil.rmtree(WORK, ignore_errors=True)
         return
+    if sys.argv[1:] == ["--examples"]:
+        shutil.rmtree(WORK, ignore_errors=True)
+        t0 = time.perf_counter()
+        print(json.dumps(phase_examples(smi)))
+        print(f"[time] seconds by phase: 19 {time.perf_counter() - t0:.1f}")
+        shutil.rmtree(WORK, ignore_errors=True)
+        return
     if sys.argv[1:] == ["--mesh"]:
         tree = random_tree(rng)
         shutil.rmtree(WORK, ignore_errors=True)
@@ -5101,6 +5494,8 @@ def main() -> None:
     lap("17")
     by_path["graph replays (phase 18)"] = phase_dispatch(smi, rng)
     lap("18")
+    by_path.update(phase_examples(smi))
+    lap("19")
     print("[time] seconds by phase: " + ", ".join(
         f"{label} {t - laps[i][1]:.1f}"
         for i, (label, t) in enumerate(laps[1:])))

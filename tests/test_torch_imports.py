@@ -65,6 +65,9 @@ SLICE_MODULES = [
     "lrcn_tpu_torch.parallel.pipeline",
     "lrcn_tpu_torch.parallel.distributed",
     "lrcn_tpu_torch.parallel.dryrun",
+    "lrcn_tpu_torch.examples",
+    "lrcn_tpu_torch.examples.synthetic_end_to_end",
+    "lrcn_tpu_torch.examples.serving_quickstart",
 ]
 
 
