@@ -232,6 +232,7 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -241,6 +242,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
@@ -1830,10 +1832,11 @@ def phase_sample(smi: str) -> dict:
             "by_route": routes}
 
 
-def joint_setup():
+def joint_setup(mesh=None):
     """A joint step at the reference width on the card (full VGG-16, the
-    2x1000 decoder, K=4, dropout 0.4, bf16, mean image 117), its
-    parameters and optimizer, and one chunk of K synthetic batches."""
+    2x1000 decoder, K=4, dropout 0.4, bf16, mean image 117; over ``mesh``
+    where given), its parameters and optimizer, and one chunk of K
+    synthetic batches."""
     from lrcn_tpu_torch.config import LRCNConfig
     from lrcn_tpu_torch.models.joint import (JointTrainStep,
                                              make_joint_optimizer)
@@ -1843,7 +1846,7 @@ def joint_setup():
                      compute_dtype="bfloat16", seed=SEED + 1)
     avg = np.full((224, 224, 3), JOINT_MEAN, np.float32)
     step = JointTrainStep(cfg, make_joint_optimizer(cfg), remat_cnn=True,
-                          average_image=avg, device="cuda")
+                          average_image=avg, device="cuda", mesh=mesh)
     params, opt_state = step.init(SEED)
     rng = np.random.default_rng(SEED + 7)
     k, b, l = JOINT_K, JOINT_BATCH, JOINT_LEN
@@ -2193,6 +2196,7 @@ def phase_joint(smi: str) -> dict:
           f"joint step at the reference width: losses {losses.tolist()}")
     steps = JOINT_DISPATCHES * JOINT_K
     ms = dt / steps * 1e3
+    RESULTS["joint_ms"] = ms
     flops = joint_step_flops(JOINT_BATCH, JOINT_LEN + 1)
     n_params = vgg.vgg_param_count(params.cnn) + lrcn.param_count(
         params.decoder)
@@ -3732,9 +3736,11 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
     group on the card (NCCL refuses a second rank on one GPU), then the
     narrow f32 steps of ``mesh_inputs`` over meshes that list the card
     twice: ``ShardedTrainStep`` at (2, 1) and (1, 2), ``PipelinedTrainStep``
-    at (1, 2), ``JointTrainStep`` at (2, 1).  Writes each step's loss and
-    gathered gradients, and the kernels' launch counts, to
-    ``work/rank<rank>.pkl``."""
+    at (1, 2), ``JointTrainStep`` at (2, 1).  Then two more steps of each
+    through its graphed entry point, which under gloo runs the eager
+    body.  Writes each step's loss and gathered gradients, the graph
+    captures and whether the groups are capturable, and the kernels'
+    launch counts, to ``work/rank<rank>.pkl``."""
     import pickle
 
     from lrcn_tpu_torch.config import LRCNConfig
@@ -3747,6 +3753,7 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
     from lrcn_tpu_torch.parallel.pipeline import PipelinedTrainStep
     from lrcn_tpu_torch.parallel.train import ShardedTrainStep
     from lrcn_tpu_torch.train.joint import load_joint_params
+    from lrcn_tpu_torch.utils import graphs
 
     pdist.initialize(f"file://{os.path.join(work, 'rendezvous')}", world,
                      rank, backend="gloo")
@@ -3776,6 +3783,8 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
             grads = {f"{part}/{k}": p.grad.cpu().numpy()
                      for part, ps in zip(JointParams._fields, params)
                      for k, p in ps.items()}
+            for key in (1, 2):
+                step(params, state, *step.shard_batch(*batch), key)
         else:
             step = (PipelinedTrainStep if kind == "pipelined"
                     else ShardedTrainStep)(cfg, mesh)
@@ -3785,8 +3794,13 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
                                        drop_masks=masks)
             grads = pdist.gather_to_host(
                 {k: params[k].grad for k in step.specs}, mesh, step.specs)
+            for key in (1, 2):
+                step(params, opt, *step.shard_batch(*batch), key)
         out[name] = (float(loss), grads)
+        out.setdefault("capturable", []).append(graphs.capturable(
+            torch.zeros(1, device=mesh.local_device()), mesh.groups()))
     torch.cuda.synchronize()
+    out["graphs"] = dict(graphs.stats)
     out["seconds"] = time.perf_counter() - t0
     out["counts"] = read_counts(*fns)
     with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
@@ -3929,82 +3943,326 @@ def phase_mesh_ranks() -> float:
     counts = [r["counts"] for r in ranks]
     check(all(sum(c.values()) == 0 for c in counts),
           f"the rank steps launched hand-written kernels: {counts}")
+    check(all(r["graphs"]["captures"] == 0 and not any(r["capturable"])
+              for r in ranks),
+          f"the gloo ranks captured graphs: "
+          f"{[(r['graphs'], r['capturable']) for r in ranks]}")
     seconds = time.perf_counter() - t0
     print(f"[16 mesh] {MESH_RANKS} gloo ranks on cuda:0 (NCCL refuses one "
           f"card twice), f32, TF32 off, dropout {TRAIN_DROPOUT} with the "
           f"global masks, against the one-process step (tol {MESH_TOL} of "
           f"the largest entry, {MESH_CNN_TOL} for the CNN's): "
-          + "; ".join(lines) + f"; no kernel "
+          + "; ".join(lines) + f"; two more steps of each through "
+          f"its graphed entry point took the eager body (graphs.capturable "
+          f"False for the gloo groups, 0 captures on each rank); no kernel "
           f"launched; the ranks' steps {max(r['seconds'] for r in ranks):.1f}"
           f" s, {seconds:.1f} s in all")
     return seconds
 
 
-def phase_mesh_nccl(smi: str) -> float:
-    """A one-rank NCCL group at the reference width: ``Trainer(mesh=
-    make_mesh((1, 1)))``, phase 10's batches, K=8, ms per step beside
-    phase 10's one-device figure; no kernel launched; rank 0's checkpoint
-    (19 global optax leaves) restores in the one-device ``Trainer``."""
+@contextmanager
+def counted_all_reduces():
+    """Count the ``torch.distributed.all_reduce`` calls of the block: those
+    made while the current stream captures a graph ("captured") and the
+    others ("eager").  A replay runs no Python and counts none."""
+    counts = {"eager": 0, "captured": 0}
+    real = torch.distributed.all_reduce
+
+    def counting(*args, **kwargs):
+        counts["captured" if torch.cuda.is_current_stream_capturing()
+               else "eager"] += 1
+        return real(*args, **kwargs)
+
+    torch.distributed.all_reduce = counting
+    try:
+        yield counts
+    finally:
+        torch.distributed.all_reduce = real
+
+
+def nccl_trainer(smi: str, work: str):
+    """Phase 16, the one-rank NCCL ``Trainer(mesh=make_mesh((1, 1)))`` at
+    phase 10's geometry: four K=8 dispatches on chunks A, A, B, C (eager,
+    capture, two replays) against an eager twin from the same tree, the
+    losses, parameters and 19 optax leaves bit-equal, with the
+    ``all_reduce``s of the eager call and of the capture counted;
+    ``average_loss``'s K-batch graphs against eager; eager against
+    graphed ms per step through ``train_epoch``; rank 0's checkpoint
+    restored in the one-device ``Trainer``.  Returns the figures and the
+    graphed optimizer, whose graphs the group's shutdown must drop."""
+    from lrcn_tpu_torch.models.lrcn import PARAM_KEYS
     from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
                                             fused_lstm_step, topk_logsumexp)
-    from lrcn_tpu_torch.parallel import distributed as pdist
     from lrcn_tpu_torch.parallel import make_mesh
     from lrcn_tpu_torch.train.checkpoint import load_checkpoint
     from lrcn_tpu_torch.train.metrics import MetricsLogger
     from lrcn_tpu_torch.train.trainer import Trainer
+    from lrcn_tpu_torch.utils import graphs
+
+    fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    one, params1, _, batches, store = train_setup()
+    tree = {k: params1[k].detach().cpu().numpy() for k in params1}
+    trainer = Trainer(one.cfg, one.vocab, metrics=MetricsLogger(echo=False),
+                      steps_per_dispatch=TRAIN_K, mesh=make_mesh((1, 1)))
+    del one, params1
+    groups = trainer.mesh.groups()
+    check(len(groups) == 2 and graphs.capturable(
+        torch.zeros(1, device="cuda"), groups),
+        f"the one-rank NCCL mesh's groups are not capturable: "
+        f"{[torch.distributed.get_backend(g) for g in groups]}")
+    params, opt = trainer.restore(tree)
+    twin, twin_opt = trainer.restore(tree)
+    table = trainer._device_table(store)
+    chunks = [trainer._stacked(batches[i * TRAIN_K:(i + 1) * TRAIN_K],
+                               store)[1] for i in range(4)]
+    order = (0, 0, 1, 2)
+
+    def dispatch(p, o, d):
+        return trainer._dispatch(p, o, *chunks[order[d]], table, 1,
+                                 TRAIN_K * d)
+
+    base = reserved_mb()
+    reset_counts(*fns)
+    got, seconds, reduces = [], [], []
+    for d in range(4):
+        with counted_all_reduces() as n:
+            losses, sec = timed_call(lambda: dispatch(params, opt, d))
+        got.append(losses)
+        seconds.append(sec)
+        reduces.append(n)
+        if d == 1:
+            kept = reserved_mb() - base
+    counts = read_counts(*fns)
+    check(sum(counts.values()) == 0,
+          f"the NCCL trainer launched hand-written kernels: {counts}")
+    # each step reduces the token count, the gradients (one flat buffer)
+    # and the reported loss over the data group; the clip is off
+    per = 3 * TRAIN_K
+    check(reduces == [{"eager": per, "captured": 0},
+                      {"eager": 0, "captured": per},
+                      {"eager": 0, "captured": 0},
+                      {"eager": 0, "captured": 0}],
+          f"NCCL trainer: all_reduces by dispatch {reduces}")
+    with eager_bodies():
+        want = [dispatch(twin, twin_opt, d) for d in range(4)]
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"NCCL trainer: graphed losses {[g.tolist() for g in got]} "
+          f"against eager {[w.tolist() for w in want]}")
+    differ = [k for k in PARAM_KEYS if not torch.equal(params[k], twin[k])]
+    check(not differ, f"NCCL trainer: parameters {differ} differ from the "
+                      f"eager twin's after 4 dispatches")
+    leaves, twin_leaves = opt.state_leaves(), twin_opt.state_leaves()
+    check(len(leaves) == 19 and int(leaves[0]) == 4 * TRAIN_K
+          and all(np.array_equal(a, b) for a, b in zip(leaves, twin_leaves)),
+          "NCCL trainer: Adam's leaves differ from the eager twin's")
+    (entry,) = graphs.graphs(opt)
+    check(entry.replays == 3, f"NCCL trainer: {entry.replays} replays")
+    with counted_all_reduces() as n_eval:
+        evals = [trainer.average_loss(params, batches, store)
+                 for _ in range(2)]
+    with eager_bodies():
+        eager_eval = trainer.average_loss(params, batches, store)
+    check(all(e == eager_eval for e in evals)
+          and n_eval["captured"] == 2 * TRAIN_K,
+          f"NCCL trainer: graphed K-batch evaluation {evals} against eager "
+          f"{eager_eval}; all_reduces {n_eval}")
+
+    timed = batches[TRAIN_K:]
+
+    def epoch(p, o):
+        trainer.train_epoch(p, o, timed, store, 2, np.random.default_rng(
+            SEED), log_every=0)                 # train_epoch synchronizes
+
+    ms = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        t0 = time.perf_counter()
+        if name == "eager":
+            with eager_bodies():
+                epoch(twin, twin_opt)
+        else:
+            epoch(params, opt)
+        ms[name].append((time.perf_counter() - t0) / len(timed) * 1e3)
+    check(all(torch.equal(params[k], twin[k]) for k in PARAM_KEYS),
+          "NCCL trainer: graphed and eager epochs part")
+    path = os.path.join(work, "ckpt")
+    trainer._save(path, params, opt, epoch=1)
+    ck = load_checkpoint(path, "cuda", opt_state=True)
+    check(len(ck["opt_leaves"]) == 19, f"{len(ck['opt_leaves'])} "
+                                       f"optimizer leaves")
+    back, back_opt = Trainer(trainer.cfg, trainer.vocab,
+                             metrics=MetricsLogger(echo=False),
+                             device="cuda").restore(ck["params"],
+                                                    ck["opt_leaves"])
+    steps = int(opt.state_leaves()[0])
+    check(all(torch.equal(back[k], params[k].detach()) for k in back)
+          and int(back_opt.state_leaves()[0]) == steps,
+          "the NCCL rank's checkpoint does not restore in the one-device "
+          "Trainer")
+    return {"ms": ms, "first_call_s": seconds[0],
+            "capture_call_s": seconds[1], "capture_kept_mb": kept,
+            "per_dispatch": per, "eval": evals[-1], "count": steps,
+            "eval_captured": n_eval["captured"]}, opt
+
+
+def nccl_joint() -> dict:
+    """Phase 16, the one-rank NCCL ``JointTrainStep(mesh=make_mesh((1,
+    1)))`` at phase 12's geometry: K=4 dispatches on chunks A, A, B
+    (eager, capture, a replay) against an eager twin under cuDNN's
+    deterministic algorithms (losses equal, parameters within RESUME_RTOL
+    of their largest entry), ``all_reduce``s counted, ``eval_batch``
+    graphed against eager; then, a new optimizer under the default
+    algorithms, eager against graphed ms per step."""
+    from lrcn_tpu_torch.models import lrcn
+    from lrcn_tpu_torch.parallel import make_mesh
+
+    step, params, opt_state, chunk = joint_setup(make_mesh((1, 1)))
+    twin = copy.deepcopy(params)
+    twin_opt = step.opt.init(twin)
+    chunks = [chunk, (chunk[0].flip(2), *chunk[1:])]
+    order = (0, 0, 1)
+    per = 3 * JOINT_K
+    torch.backends.cudnn.deterministic = True
+    try:
+        got, reduces = [], []
+        for d, c in enumerate(order):
+            with counted_all_reduces() as n:
+                got.append(step.multi_step(params, opt_state, *chunks[c], 3,
+                                           4 * d)[2])
+            reduces.append(n)
+        with eager_bodies():
+            want = [step.multi_step(twin, twin_opt, *chunks[c], 3, 4 * d)[2]
+                    for d, c in enumerate(order)]
+        batch = [t[0] for t in chunks[1]]
+        with counted_all_reduces() as n_eval:
+            evals = [torch.stack(step.eval_batch(params, *batch))
+                     for _ in range(3)]
+        with eager_bodies():
+            eager_eval = torch.stack(step.eval_batch(params, *batch))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(reduces == [{"eager": per, "captured": 0},
+                      {"eager": 0, "captured": per},
+                      {"eager": 0, "captured": 0}]
+          and n_eval == {"eager": 4, "captured": 2},
+          f"NCCL joint step: all_reduces by dispatch {reduces}, of the "
+          f"evaluations {n_eval}")
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"NCCL joint step: graphed losses {[g.tolist() for g in got]} "
+          f"against eager {[w.tolist() for w in want]}")
+    check(all(torch.equal(e, eager_eval) for e in evals),
+          f"NCCL joint eval_batch {evals} against eager {eager_eval}")
+    flat, twin_flat = lrcn.flat_tree(params), lrcn.flat_tree(twin)
+    errs = {k: float(np.abs(flat[k] - twin_flat[k]).max()
+                     / max(np.abs(twin_flat[k]).max(), 1e-30))
+            for k in flat}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= RESUME_RTOL, f"NCCL joint step: {worst} off by "
+                                      f"{errs[worst]:.3g} from the eager "
+                                      f"twin's")
+    equal = all(np.array_equal(flat[k], twin_flat[k]) for k in flat)
+    del twin, twin_opt, flat, twin_flat, opt_state
+    base = reserved_mb()
+    opt_state = step.opt.init(params)
+    seconds = []
+    for d in range(2):
+        _, sec = timed_call(lambda: step.multi_step(params, opt_state,
+                                                    *chunks[0], 5, 4 * d))
+        seconds.append(sec)
+        if d == 1:
+            kept = reserved_mb() - base
+    ms = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        def call():
+            step.multi_step(params, opt_state, *chunks[1], 5, 8)
+        if name == "eager":
+            with eager_bodies():
+                wall, _ = graph_wall_ms(call, 2)
+        else:
+            wall, _ = graph_wall_ms(call, 2)
+        ms[name].append(wall / JOINT_K)
+    return {"ms": ms, "first_call_s": seconds[0],
+            "capture_call_s": seconds[1], "capture_kept_mb": kept,
+            "per_dispatch": per, "worst": (worst, errs[worst]),
+            "bit_equal": equal, "losses": got[-1].tolist()}
+
+
+def phase_mesh_nccl(smi: str) -> float:
+    """A one-rank NCCL group at the reference width: the ``Trainer`` and
+    the joint step over ``make_mesh((1, 1))``, each dispatch graphed with
+    its ``all_reduce``s and held against an eager twin (``nccl_trainer``,
+    ``nccl_joint``); ms per step graphed and eager beside phases 10 and
+    12's one-device figures; the group's shutdown drops the graphs that
+    replay its communicators.  Returns the seconds."""
+    from lrcn_tpu_torch.parallel import distributed as pdist
+    from lrcn_tpu_torch.utils import graphs
 
     t0 = time.perf_counter()
     work = os.path.join(WORK, "mesh_nccl")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    before = live_graphs()
     pdist.initialize(f"file://{os.path.join(work, 'rendezvous')}", 1, 0,
                      backend="nccl")
     try:
-        one, params1, _, batches, store = train_setup()
-        tree = {k: params1[k].detach().cpu().numpy() for k in params1}
-        trainer = Trainer(one.cfg, one.vocab,
-                          metrics=MetricsLogger(echo=False),
-                          steps_per_dispatch=TRAIN_K,
-                          mesh=make_mesh((1, 1)))
-        del one, params1
-        params, opt = trainer.restore(tree)
-        key, shuffle = 1, np.random.default_rng(SEED)
-        trainer.train_epoch(params, opt, batches[:TRAIN_K], store, key,
-                            shuffle, log_every=0)        # warm-up
-        timed = batches[TRAIN_K:]
-        fns = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
-        reset_counts(*fns)
-        t1 = time.perf_counter()
-        trainer.train_epoch(params, opt, timed, store, key, shuffle,
-                            log_every=0)
-        ms = (time.perf_counter() - t1) / len(timed) * 1e3
-        counts = read_counts(*fns)
-        check(sum(counts.values()) == 0,
-              f"the NCCL trainer launched hand-written kernels: {counts}")
-        path = os.path.join(work, "ckpt")
-        trainer._save(path, params, opt, epoch=1)
-        ck = load_checkpoint(path, "cuda", opt_state=True)
-        check(len(ck["opt_leaves"]) == 19, f"{len(ck['opt_leaves'])} "
-                                           f"optimizer leaves")
-        back, back_opt = Trainer(trainer.cfg, trainer.vocab,
-                                 metrics=MetricsLogger(echo=False),
-                                 device="cuda").restore(ck["params"],
-                                                        ck["opt_leaves"])
-        check(all(torch.equal(back[k], params[k].detach()) for k in back)
-              and int(back_opt.state_leaves()[0]) == TRAIN_K + len(timed),
-              "the NCCL rank's checkpoint does not restore in the "
-              "one-device Trainer")
         backend = torch.distributed.get_backend()
+        train, opt = nccl_trainer(smi, work)
+        t1 = time.perf_counter()
+        joint = nccl_joint()
+        t2 = time.perf_counter()
+        alive = len(graphs.graphs(opt))
     finally:
         pdist.shutdown()
+    after = live_graphs()
+    check(alive == 1 and graphs.graphs(opt) == [] and after == before,
+          f"after the NCCL group's shutdown: the trainer's optimizer holds "
+          f"{len(graphs.graphs(opt))} graphs ({alive} before), "
+          f"{after} graphs alive ({before} before the group)")
+    del opt
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    env = {k: os.environ.get(k) for k in ("TORCH_NCCL_BLOCKING_WAIT",
+                                          "TORCH_NCCL_ASYNC_ERROR_HANDLING")}
+    t, j = train["ms"], joint["ms"]
+    print(f"[16 mesh] one-rank {backend} group (NCCL {nccl}, {env}) on "
+          f"{smi}: Trainer(mesh=make_mesh((1, 1))) at the reference width, "
+          f"bf16, B={TRAIN_BATCH}, L={TRAIN_LEN}, K={TRAIN_K}, dropout "
+          f"{TRAIN_DROPOUT}: four dispatches (eager, capture, two replays "
+          f"on other batches) bit-equal to an eager twin: losses, "
+          f"parameters and the 19 optax leaves; all_reduces of a dispatch "
+          f"{train['per_dispatch']} eager, then {train['per_dispatch']} "
+          f"captured, none from a replay; average_loss (K-batch graphs, "
+          f"{train['eval_captured']} all_reduces captured) "
+          f"{train['eval']:.6f} = eager; ms per step through train_epoch "
+          f"over {TRAIN_DISPATCHES * TRAIN_K} steps: graphed "
+          f"{t['graphed'][0]:.3f}, {t['graphed'][1]:.3f}; eager "
+          f"{t['eager'][0]:.3f}, {t['eager'][1]:.3f} (phase 10, one "
+          f"device, graphed: {RESULTS.get('train_ms', float('nan')):.3f}); "
+          f"first call (eager) {train['first_call_s']:.3f} s, capturing "
+          f"call {train['capture_call_s']:.3f} s, the capture kept "
+          f"{train['capture_kept_mb']:.1f} MB; no kernel launched; rank "
+          f"0's checkpoint (19 global optax leaves, count "
+          f"{train['count']}) restores in the one-device Trainer")
+    print(f"[16 mesh] one-rank {backend} group on {smi}: JointTrainStep("
+          f"mesh=make_mesh((1, 1))) at the reference width, B={JOINT_BATCH}"
+          f", L={JOINT_LEN}, K={JOINT_K}, dropout {TRAIN_DROPOUT}, bf16, "
+          f"remat, cudnn.deterministic: three dispatches (eager, capture, a "
+          f"replay on other images) against an eager twin: losses equal "
+          f"({joint['losses']}), parameters within {joint['worst'][1]:.3g} "
+          f"of their largest entry ({joint['worst'][0]}; tol {RESUME_RTOL})"
+          f", bit-equal: {joint['bit_equal']}; all_reduces of a dispatch "
+          f"{joint['per_dispatch']} eager, then captured; eval_batch "
+          f"graphed = eager; a new optimizer, default algorithms: ms per "
+          f"step graphed {j['graphed'][0]:.3f}, {j['graphed'][1]:.3f}; "
+          f"eager {j['eager'][0]:.3f}, {j['eager'][1]:.3f} (phase 12, one "
+          f"device, graphed: {RESULTS.get('joint_ms', float('nan')):.3f}); "
+          f"first call {joint['first_call_s']:.3f} s, capturing call "
+          f"{joint['capture_call_s']:.3f} s, the capture kept "
+          f"{joint['capture_kept_mb']:.1f} MB")
     seconds = time.perf_counter() - t0
-    print(f"[16 mesh] one-rank {backend} group, Trainer(mesh=make_mesh((1, "
-          f"1))) at the reference width, bf16, B={TRAIN_BATCH}, "
-          f"K={TRAIN_K}: {ms:.3f} ms per step over {len(timed)} steps "
-          f"(phase 10, one device: {RESULTS.get('train_ms', float('nan')):.3f}"
-          f" ms) on {smi}; no kernel launched; rank 0's checkpoint (19 "
-          f"global optax leaves) restores in the one-device Trainer; "
-          f"{seconds:.1f} s")
+    print(f"[16 mesh] after the NCCL group's shutdown: the trainer's "
+          f"optimizer, still alive, holds no graph; live_graphs() "
+          f"{after} ({before} before the group); {seconds:.1f} s (trainer "
+          f"{t1 - t0:.1f}, joint step {t2 - t1:.1f})")
+    print(json.dumps({"mesh_nccl": {"trainer": train, "joint": joint}}))
     return seconds
 
 
@@ -4307,8 +4565,10 @@ def live_graphs() -> int:
     from lrcn_tpu_torch.utils.graphs import GraphCache
 
     gc.collect()
-    return sum(len(o.graphs) for o in gc.get_objects()
-               if isinstance(o, GraphCache))
+    with warnings.catch_warnings():     # deprecated objects among them
+        warnings.simplefilter("ignore", FutureWarning)
+        return sum(len(o.graphs) for o in gc.get_objects()
+                   if isinstance(o, GraphCache))
 
 
 def phase_graphs(smi: str, rng) -> dict[str, int]:
@@ -4325,8 +4585,6 @@ def phase_graphs(smi: str, rng) -> dict[str, int]:
     capturing calls' seconds, the memory the capture kept reserved, and
     that memory freed with its module.  Returns the launches of the
     checks' replays."""
-    import copy
-
     from lrcn_tpu_torch.data.images import images_to_fc7, normalize_batch
     from lrcn_tpu_torch.decode import beam
     from lrcn_tpu_torch.models.lrcn import params_from_numpy

@@ -31,7 +31,10 @@ With a ``mesh`` (one rank per entry) it is data parallel, as in JAX: both
 parameter sets are replicated, each rank takes its rows of the global
 batch, the loss differentiated is the global mean (the local NLL sum over
 the global token count) and the gradients are summed over ``data`` before
-the clip; the dropout masks are the global batch's, sliced.
+the clip; the dropout masks are the global batch's, sliced.  Its steps
+and ``eval_batch`` are graphs there too where the mesh's groups are NCCL
+(``graphs.capturable``), with their ``all_reduce``s; under gloo they run
+eagerly.
 """
 
 from __future__ import annotations
@@ -226,6 +229,8 @@ class JointTrainStep:
             check_training_mesh(mesh)
             device = mesh.local_device()
         self.device = as_device(device)
+        # graphs.step/run's say over a mesh: the groups of its collectives
+        self._graphs = {} if mesh is None else {"groups": mesh.groups()}
         self.compute_dtype = compute_dtype_of(cfg)
         self.remat_cnn = remat_cnn
         avg = (np.zeros((224, 224, 3), np.float32) if average_image is None
@@ -235,16 +240,6 @@ class JointTrainStep:
     def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
         """uint8/float raw pixels -> float32 mean-subtracted (lrcn.jl:771)."""
         return images.float() - self._avg
-
-    def _grad_step(self, params: JointParams, opt_state: JointOptState,
-                   images, tokens, lengths, key: int,
-                   drop_masks=None) -> torch.Tensor:
-        """One optimizer step under the mesh; returns the batch's loss on
-        the device."""
-        loss = self.value_and_grad(params, opt_state, images, tokens,
-                                   lengths, key, drop_masks)
-        opt_state.step()
-        return loss
 
     def value_and_grad(self, params: JointParams, opt_state: JointOptState,
                        images, tokens, lengths, key: int = 0,
@@ -298,13 +293,8 @@ class JointTrainStep:
 
     def _steps(self, params, opt_state, images_k, tokens_k, lengths_k,
                keys: Sequence[int]) -> torch.Tensor:
-        """K steps with the step keys ``keys``: eagerly under the mesh, on a
-        card one graph replay."""
-        if self.mesh is not None:
-            return torch.stack([
-                self._grad_step(params, opt_state, images_k[i], tokens_k[i],
-                                lengths_k[i], key)
-                for i, key in enumerate(keys)])
+        """K steps with the step keys ``keys``: on a card one graph replay
+        (under a mesh, on NCCL groups)."""
         return graphs.step(
             opt_state, ("joint", self.cfg.dropout, self.compute_dtype,
                         self.remat_cnn),
@@ -312,7 +302,7 @@ class JointTrainStep:
             (images_k, tokens_k, lengths_k),
             reads=(*opt_state.tensors(), self._avg),
             seeds=([step_seed(k) for k in keys] if self.cfg.dropout > 0
-                   else ()))
+                   else ()), **self._graphs)
 
     def __call__(self, params, opt_state, images, tokens, lengths, key: int
                  ) -> tuple[JointParams, JointOptState, torch.Tensor]:
@@ -336,24 +326,26 @@ class JointTrainStep:
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         feats = l1_normalize(vgg16_fc7_train(
             params.cnn, self._preprocess(images), self.compute_dtype))
-        return lrcn.loss_total_count(params.decoder, tokens, lengths, feats,
-                                     compute_dtype=self.compute_dtype)
+        total, count = lrcn.loss_total_count(params.decoder, tokens, lengths,
+                                             feats,
+                                             compute_dtype=self.compute_dtype)
+        if self.mesh is not None:
+            from lrcn_tpu_torch.parallel.train import sum_over_data
+            total = sum_over_data(total, self.mesh)
+            count = sum_over_data(count, self.mesh)
+        return total, count
 
     @torch.no_grad()
     def eval_batch(self, params: JointParams, images, tokens, lengths
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(total NLL, token count) of one batch, no dropout, on the
-        device; on a card one graph replay."""
-        if self.mesh is not None:
-            from lrcn_tpu_torch.parallel.train import sum_over_data
-            total, count = self._eval_fn(params, images, tokens, lengths)
-            return (sum_over_data(total, self.mesh),
-                    sum_over_data(count, self.mesh))
+        """(total NLL, token count) of one batch (under a mesh, of the
+        global batch), no dropout, on the device; on a card one graph
+        replay (under a mesh, on NCCL groups)."""
         return graphs.run(
             params.cnn, ("joint_eval", self.compute_dtype),
             functools.partial(self._eval_fn, params),
             (images, tokens, lengths),
-            reads=(*params.decoder.values(), self._avg))
+            reads=(*params.decoder.values(), self._avg), **self._graphs)
 
     def init(self, generator: torch.Generator | int, vgg_params=None
              ) -> tuple[JointParams, JointOptState]:

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from lrcn_tpu_torch.utils import graphs
+
 # the torch launcher's variables (torchrun, torch.distributed.launch), in
 # the place of JAX's coordinator variables
 _LAUNCHER_ENV_VARS = ("WORLD_SIZE",)
@@ -111,8 +113,10 @@ def initialize(coordinator_address: str | None = None,
 
 
 def shutdown() -> None:
-    """Leave the process group, if this process joined one."""
+    """Leave the process group, if this process joined one, after
+    dropping the captured graphs that replay its communicators."""
     if dist.is_initialized():
+        graphs.forget_collectives()
         dist.destroy_process_group()
 
 

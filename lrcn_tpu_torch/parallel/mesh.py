@@ -96,6 +96,12 @@ class Mesh:
         group."""
         return self._groups.get(axis)
 
+    def groups(self) -> tuple:
+        """This rank's subgroups, in axis order (none outside a process
+        group): every group a mesh step's collectives run over."""
+        return tuple(self._groups[a] for a in self.axis_names
+                     if a in self._groups)
+
     def local_device(self) -> torch.device:
         """The device this rank drives (the first entry outside a process
         group)."""

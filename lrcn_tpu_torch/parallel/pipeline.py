@@ -278,6 +278,9 @@ class PipelinedTrainStep(MeshStep):
     # over both axes (stage 0's share is zero)
     reduce_axes = {"w_factor": ("data", "model"),
                    "w_cnn": ("data", "model")}
+    # eager even on NCCL: its model axis of 2 needs two ranks, which one
+    # card gives only over gloo, so no graph of it has been checked
+    capturable = False
 
     def __init__(self, cfg: LRCNConfig, mesh: Mesh):
         validate_pipeline_config(cfg, mesh)

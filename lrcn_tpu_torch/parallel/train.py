@@ -29,11 +29,21 @@ keeps this rank's rows, so a mesh run equals the one-device run; tests
 inject JAX's masks (``drop_masks=``) and they are sliced the same way.
 
 Every collective is an ``all_reduce`` (``parallel/distributed.py``).
+
+As JAX jits its sharded step, on NCCL groups each ``step`` and each
+``eval_batch`` is one CUDA graph replay (``utils/graphs.py``): a
+signature's first call runs the eager body (``step_fn``, ``eval_fn``) and
+makes the groups' communicators, the second captures it with its
+``all_reduce``s, every later one replays it.  The step's dropout
+generator is one that ``graphs.step`` seeds from the step key before each
+call.  Under gloo (the CPU, or two ranks on one card) the bodies run
+eagerly: gloo's collectives run on the host, out of a capture's reach.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -47,8 +57,10 @@ from lrcn_tpu_torch.models.lrcn import PARAM_KEYS, LRCNParams, flat_tree
 from lrcn_tpu_torch.parallel.distributed import gather_to_host
 from lrcn_tpu_torch.parallel.mesh import Mesh
 from lrcn_tpu_torch.train.checkpoint import OPT_KEYS, compute_dtype_of
-from lrcn_tpu_torch.train.trainer import (adam_leaves, load_adam_leaves,
-                                          make_adam, step_generator)
+from lrcn_tpu_torch.train.trainer import (adam_leaves, adam_state,
+                                          load_adam_leaves, make_adam,
+                                          step_generator, step_seed)
+from lrcn_tpu_torch.utils import graphs
 
 # shard rule per decoder parameter: one mesh axis name (or None) per
 # dimension; () is replicated.  The vocabulary dimension shards over
@@ -346,6 +358,11 @@ class ShardedOptimizer:
         self.reduce_grads()
         self.apply()
 
+    def tensors(self) -> list[torch.Tensor]:
+        """This rank's parameter shards and Adam's state, as a captured
+        step reads them."""
+        return self.params + adam_state(self.adam)
+
     def state_leaves(self) -> list[np.ndarray]:
         """Adam's state as optax's leaves at global shapes: [count, mu...,
         nu...].  Collective."""
@@ -368,6 +385,7 @@ class ShardedOptimizer:
                                 self.keys)
         load_adam_leaves(self.adam, self.params, self.keys, local,
                          "the decoder")
+        graphs.forget(self)
 
 
 # --- the step ---
@@ -443,11 +461,18 @@ class MeshStep:
     """What the sharded and the pipelined steps share: the batch and the
     dropout masks of this rank, the optimizer, the step and the eval
     step.  A subclass gives ``specs``, ``opt_keys``, ``reduce_axes``,
-    ``loss_total_count``, ``shard_params`` and ``unshard_params``."""
+    ``loss_total_count``, ``shard_params`` and ``unshard_params``.
+
+    ``step`` and ``eval_batch`` run their eager bodies (``step_fn``,
+    ``eval_fn``) as graphs where ``graphs.capturable`` holds for the
+    mesh's groups and ``capturable`` for the step.  Every rank captures
+    and replays at the same calls: each takes its rows of the same global
+    batches, so the ranks' signatures change at the same calls."""
 
     specs: dict[str, tuple]
     opt_keys: tuple[str, ...]
     reduce_axes: dict[str, tuple] = {}
+    capturable = True
 
     def __init__(self, cfg: LRCNConfig, mesh: Mesh):
         check_training_mesh(mesh)
@@ -463,38 +488,64 @@ class MeshStep:
     def shard_batch(self, tokens, lengths, feats) -> tuple:
         return put_batch(self.mesh, tokens, lengths, feats)
 
-    def drop_masks(self, tokens, key: int, drop_masks=None):
-        """This rank's rows of the step's dropout masks (``drop_masks``,
-        the global ones, or drawn from the step generator of ``key``), or
-        None without dropout."""
-        if self.cfg.dropout <= 0:
-            return None
-        gen = None if drop_masks is not None else step_generator(
-            key, self.device)
-        return global_drop_masks(self.cfg, tokens.shape[1] + 1,
-                                 tokens.shape[0], self.mesh, gen,
-                                 drop_masks, self.device)
-
-    def value_and_grad(self, params, opt: ShardedOptimizer, tokens, lengths,
-                       feats, key: int = 0, drop_masks=None) -> torch.Tensor:
-        """The global mean loss, with the gradient of the global loss in
-        every parameter's ``.grad`` (summed over the mesh; no update)."""
+    def _value_and_grad(self, params, opt: ShardedOptimizer, tokens,
+                        lengths, feats, generator, drop_masks=None
+                        ) -> torch.Tensor:
         opt.zero_grad()
-        total, count = self.loss_total_count(
-            params, tokens, lengths, feats,
-            drop_masks=self.drop_masks(tokens, key, drop_masks))
+        masks = None
+        if self.cfg.dropout > 0:
+            masks = global_drop_masks(self.cfg, tokens.shape[1] + 1,
+                                      tokens.shape[0], self.mesh, generator,
+                                      drop_masks, self.device)
+        total, count = self.loss_total_count(params, tokens, lengths, feats,
+                                             drop_masks=masks)
         (total / count).backward()
         opt.reduce_grads()
         return sum_over_data(total, self.mesh) / count
 
+    def value_and_grad(self, params, opt: ShardedOptimizer, tokens, lengths,
+                       feats, key: int = 0, drop_masks=None) -> torch.Tensor:
+        """The global mean loss, with the gradient of the global loss in
+        every parameter's ``.grad`` (summed over the mesh; no update);
+        eager.  Dropout: the global ``drop_masks``, or drawn from the step
+        generator of ``key``."""
+        generator = (step_generator(key, self.device)
+                     if self.cfg.dropout > 0 and drop_masks is None
+                     else None)
+        return self._value_and_grad(params, opt, tokens, lengths, feats,
+                                    generator, drop_masks)
+
+    def step_fn(self, params, opt: ShardedOptimizer, generator, tokens,
+                lengths, feats, drop_masks=None) -> torch.Tensor:
+        """The eager body of one step, dropout drawn from ``generator`` (or
+        the global ``drop_masks``): updates in place and returns the
+        global mean loss; leaves no gradient behind."""
+        loss = self._value_and_grad(params, opt, tokens, lengths, feats,
+                                    generator, drop_masks)
+        opt.apply()
+        opt.zero_grad()
+        return loss.detach()
+
+    def _step_body(self, params, opt, generators, tokens, lengths, feats,
+                   *drop_masks) -> torch.Tensor:
+        return self.step_fn(params, opt,
+                            generators[0] if generators else None, tokens,
+                            lengths, feats, drop_masks or None)
+
     def step(self, params, opt: ShardedOptimizer, tokens, lengths, feats,
              key: int = 0, drop_masks=None) -> torch.Tensor:
         """One optimizer step in place; returns the global mean loss on
-        the device."""
-        loss = self.value_and_grad(params, opt, tokens, lengths, feats, key,
-                                   drop_masks)
-        opt.apply()
-        return loss
+        the device.  On NCCL groups one graph replay (eager at a
+        signature's first call)."""
+        masks = () if drop_masks is None else tuple(
+            torch.as_tensor(m).to(self.device) for m in drop_masks)
+        seeds = ([step_seed(key)] if self.cfg.dropout > 0 and not masks
+                 else [])
+        return graphs.step(
+            opt, ("mesh_step", self.cfg.dropout, self.compute_dtype),
+            functools.partial(self._step_body, params, opt),
+            (tokens, lengths, feats, *masks), reads=opt.tensors(),
+            seeds=seeds, graph=self.capturable, groups=self.mesh.groups())
 
     def __call__(self, params, opt, tokens, lengths, feats, key: int = 0,
                  drop_masks=None):
@@ -502,12 +553,21 @@ class MeshStep:
                          drop_masks)
         return params, opt, loss
 
+    def eval_fn(self, params, tokens, lengths, feats
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The eager body of ``eval_batch``."""
+        total, count = self.loss_total_count(params, tokens, lengths, feats)
+        return sum_over_data(total, self.mesh), count
+
     @torch.no_grad()
     def eval_batch(self, params, tokens, lengths, feats
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(global NLL sum, global token count), no dropout."""
-        total, count = self.loss_total_count(params, tokens, lengths, feats)
-        return sum_over_data(total, self.mesh), count
+        """(global NLL sum, global token count), no dropout; on NCCL
+        groups one graph replay."""
+        return graphs.run(
+            params, ("mesh_eval", self.compute_dtype),
+            functools.partial(self.eval_fn, params), (tokens, lengths, feats),
+            graph=self.capturable, groups=self.mesh.groups())
 
 
 class ShardedTrainStep(MeshStep):

@@ -43,7 +43,11 @@ through ``parallel.ShardedTrainStep`` (data x vocabulary parallel), or
 step a dispatch as in JAX.  Every rank holds the feature table and takes
 its rows of every stacked batch; the shuffle seed is ``shared_seed``'s;
 checkpoints gather the parameters and the optimizer's moments to their
-global shapes on every rank, and rank 0 alone writes them.
+global shapes on every rank, and rank 0 alone writes them.  On NCCL
+groups each dispatch of K sharded steps and each K-batch evaluation is
+one graph replay with its ``all_reduce``s, as JAX jits its mesh
+``_multi_step``; under gloo, and for the pipeline, the same bodies run
+eagerly (``graphs.capturable``, ``PipelinedTrainStep.capturable``).
 """
 
 from __future__ import annotations
@@ -246,6 +250,11 @@ class Trainer:
             self._sharded = ShardedTrainStep(cfg, mesh)
         self.device = (as_device(device) if self._sharded is None
                        else self._sharded.device)
+        # graphs.step/run's say over a mesh: the groups of its collectives,
+        # and whether its step may be captured at all
+        self._graphs = ({} if self._sharded is None else
+                        {"groups": mesh.groups(),
+                         "graph": self._sharded.capturable})
         self.steps_per_dispatch = max(1, steps_per_dispatch)
         self._table_cache = None   # (weakref to store, device table)
 
@@ -281,17 +290,14 @@ class Trainer:
 
     # --- one step ---
 
-    def _step(self, params: LRCNParams, opt, tokens, lengths, feats,
-              key: int) -> torch.Tensor:
-        """One optimizer step under the mesh; returns the batch's loss on
-        the device."""
-        return self._sharded.step(params, opt, tokens, lengths, feats,
-                                  key).detach()
-
     def _step_fn(self, params: LRCNParams, opt: Optimizer, tokens, lengths,
                  feats, generator) -> torch.Tensor:
         """One optimizer step, dropout drawn from ``generator``; returns the
-        batch's loss on the device and leaves no gradient behind."""
+        batch's loss on the device and leaves no gradient behind.  Under a
+        mesh, the mesh step's body (the global loss)."""
+        if self._sharded is not None:
+            return self._sharded.step_fn(params, opt, generator, tokens,
+                                         lengths, feats)
         opt.zero_grad()
         loss = lrcn.loss_fn(params, tokens, lengths, feats,
                             pdrop=self.cfg.dropout, generator=generator,
@@ -316,20 +322,16 @@ class Trainer:
         """K steps over stacked same-shape batches, features gathered from
         the device-resident ``table`` by row; the step keys derive from
         (base_key, offset + i).  On a card one graph replay (eager at a
-        shape's first dispatch).  Returns the K losses, not read."""
+        shape's first dispatch; under a mesh, on NCCL groups).  Returns
+        the K losses, not read."""
         keys = [fold_in(base_key, offset + i)
                 for i in range(tokens_k.shape[0])]
-        if self._sharded is not None:
-            return torch.stack([
-                self._step(params, opt, tokens_k[i], lengths_k[i],
-                           table[rows_k[i]], key)
-                for i, key in enumerate(keys)])
         return graphs.step(
             opt, ("dispatch", self.cfg.dropout, self.compute_dtype),
             functools.partial(self._dispatch_fn, params, opt, table),
             (tokens_k, lengths_k, rows_k), reads=(*opt.tensors(), table),
             seeds=([step_seed(k) for k in keys] if self.cfg.dropout > 0
-                   else ()))
+                   else ()), **self._graphs)
 
     # --- host loop ---
 
@@ -455,28 +457,27 @@ class Trainer:
     def _eval_fn(self, params, table, tokens_k, lengths_k, rows_k
                  ) -> torch.Tensor:
         """(NLL sum, token count) over K stacked batches, one batch after
-        another."""
+        another (under a mesh, of the global batches)."""
         part = torch.zeros(2, device=tokens_k.device)
         for i in range(tokens_k.shape[0]):
-            part = part + torch.stack(lrcn.loss_total_count(
-                params, tokens_k[i], lengths_k[i], table[rows_k[i]],
-                compute_dtype=self.compute_dtype))
+            feats = table[rows_k[i]]
+            part = part + torch.stack(
+                lrcn.loss_total_count(params, tokens_k[i], lengths_k[i],
+                                      feats, compute_dtype=self.compute_dtype)
+                if self._sharded is None else
+                self._sharded.eval_fn(params, tokens_k[i], lengths_k[i],
+                                      feats))
         return part
 
     def _eval(self, params, tokens_k, lengths_k, rows_k, table
               ) -> torch.Tensor:
         """(NLL sum, token count) of K stacked batches, over the mesh's
-        global batches under a mesh; on a card one graph replay."""
-        if self._sharded is not None:
-            part = torch.zeros(2, device=self.device)
-            for i in range(tokens_k.shape[0]):
-                part = part + torch.stack(self._sharded.eval_batch(
-                    params, tokens_k[i], lengths_k[i], table[rows_k[i]]))
-            return part
+        global batches under a mesh; on a card one graph replay (under a
+        mesh, on NCCL groups)."""
         return graphs.run(
             params, ("eval", self.compute_dtype),
             functools.partial(self._eval_fn, params, table),
-            (tokens_k, lengths_k, rows_k), reads=(table,))
+            (tokens_k, lengths_k, rows_k), reads=(table,), **self._graphs)
 
     @torch.no_grad()
     def average_loss(self, params: LRCNParams, batches: Sequence[Batch],

@@ -68,6 +68,21 @@ warms each shape up twice.  On CPU tensors both call the eager body, as
   eager call does; the warm-up and the capture count nothing; each
   replay adds the kernel launches recorded at capture
   (``ops/kernels/launches.py``), so a call counts each launch once.
+- **Collectives**: a mesh's training steps and evaluations
+  (``parallel/train.py``, ``train/trainer.py``, ``models/joint.py``)
+  pass the process ``groups`` their collectives run over.  A call is a
+  graph only where :func:`capturable` says so: every group NCCL, whose
+  ``all_reduce`` enqueues device work on a stream that a capture can
+  hold; under gloo (the CPU, or two ranks on one card) the collectives
+  run on the host and the body runs eagerly.  The groups are part of the
+  signature, and a signature's first call, eager, makes each group's
+  communicator before any capture.  Every rank makes the same calls in
+  the same order with the same shapes (each takes its rows of the same
+  global batches), so every rank runs the first call eagerly, captures
+  the second and replays the rest at the same calls, and the ranks'
+  collectives stay in step.  A graph replays its group's communicator:
+  :func:`forget_collectives` drops such graphs, and
+  ``parallel.distributed.shutdown`` calls it before the group goes.
 """
 
 from __future__ import annotations
@@ -76,9 +91,11 @@ import contextlib
 import dataclasses
 import functools
 import threading
+import weakref
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from lrcn_tpu_torch.ops.kernels import launches
 
@@ -94,6 +111,8 @@ _handed: set = set()
 _stats_lock = threading.Lock()
 # captures and replays in this process, over every module
 stats = {"captures": 0, "replays": 0}
+# the owners whose graphs hold collectives
+_collective_owners: weakref.WeakSet = weakref.WeakSet()
 
 
 @dataclasses.dataclass
@@ -136,6 +155,15 @@ def enabled(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
+def capturable(x: torch.Tensor, groups: Sequence = ()) -> bool:
+    """Whether a call on ``x`` whose collectives run over the process
+    ``groups`` runs as a graph: ``enabled(x)``, and every group NCCL.
+    Gloo runs its collectives on the host, out of a capture's reach.
+    Decided from the backend, never from a failed capture."""
+    return enabled(x) and all(dist.get_backend(g) == "nccl"
+                              for g in groups)
+
+
 def cache_of(owner) -> GraphCache:
     cache = owner.__dict__.get("_graph_cache")
     if cache is None:
@@ -153,6 +181,18 @@ def forget(owner) -> None:
     of every signature runs eagerly again.  For state loaded anew
     (``Optimizer.load_leaves``), which no graph of the old may read."""
     owner.__dict__.pop("_graph_cache", None)
+
+
+def forget_collectives() -> None:
+    """Drop every graph of the owners whose graphs hold collectives, once
+    the card has run them: before their process group goes, as a replay
+    after it would use a destroyed communicator."""
+    owners = list(_collective_owners)
+    if owners and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for owner in owners:
+        forget(owner)
+    _collective_owners.clear()
 
 
 def default_generator(device: torch.device) -> torch.Generator:
@@ -188,8 +228,8 @@ def _graph_stream(device: torch.device, stream) -> torch.cuda.Stream:
 
 
 def _signature(key: tuple, stream, inputs: Sequence[torch.Tensor],
-               held: Sequence[torch.Tensor]) -> tuple:
-    return (key, stream.cuda_stream,
+               held: Sequence[torch.Tensor], groups: Sequence = ()) -> tuple:
+    return (key, tuple(groups), stream.cuda_stream,
             tuple((tuple(x.shape), x.dtype, x.device) for x in inputs),
             tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in held))
 
@@ -228,29 +268,31 @@ def _replay(entry: Graph, stream) -> None:
 def run(owner: torch.nn.Module, key: tuple, fn: Callable,
         inputs: Sequence[torch.Tensor], reads: Sequence[torch.Tensor] = (),
         *, graph: bool = True,
-        generators: Sequence[torch.Generator] = ()):
-    """``fn(*inputs)``: on CUDA tensors (unless ``graph`` is False) as a
-    replay of the graph captured for this signature, captured now at the
-    signature's second call, returning fresh tensors in the structure
-    ``fn`` returns (one tensor or a tuple); else, and at a signature's
-    first call, ``fn`` itself, eagerly, under ``torch.inference_mode``
-    on a card.
+        generators: Sequence[torch.Generator] = (), groups: Sequence = ()):
+    """``fn(*inputs)``: where :func:`capturable` (on CUDA tensors, every
+    one of ``groups`` NCCL) and ``graph`` is True, as a replay of the
+    graph captured for this signature, captured now at the signature's
+    second call, returning fresh tensors in the structure ``fn`` returns
+    (one tensor or a tuple); else, and at a signature's first call,
+    ``fn`` itself, eagerly, under ``torch.inference_mode`` on a card.
 
     ``fn`` must be the eager body: it may read ``owner``'s parameters and
     buffers and ``reads`` in place, may draw from ``generators`` (which
-    the caller's ``key`` names where they are not fixed), must not wait
-    for the device, and is called twice at capture (warm-up, capture).
-    The inputs share one device.
+    the caller's ``key`` names where they are not fixed), may run
+    collectives over ``groups``, must not wait for the device, and is
+    called twice at capture (warm-up, capture).  The inputs share one
+    device.
     """
-    if not (graph and enabled(inputs[0])):
+    if not (graph and capturable(inputs[0], groups)):
         return fn(*inputs)
     device = inputs[0].device
     if device.type == "cuda" and device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return run(owner, key, fn, inputs, reads, generators=generators)
+            return run(owner, key, fn, inputs, reads, generators=generators,
+                       groups=groups)
     stream = torch.cuda.current_stream(device)
     held = (*owner.parameters(), *owner.buffers(), *reads)
-    sig = _signature(key, stream, inputs, held)
+    sig = _signature(key, stream, inputs, held, groups)
     cache = cache_of(owner)
     with cache.lock:
         first = sig not in cache.seen
@@ -265,6 +307,8 @@ def run(owner: torch.nn.Module, key: tuple, fn: Callable,
             entry = _capture(cache, key, fn, inputs, device, stream,
                              generators)
             cache.graphs[sig] = entry
+            if groups:
+                _collective_owners.add(owner)
         else:
             for static, x in zip(entry.inputs, inputs):
                 static.copy_(x)
@@ -311,31 +355,34 @@ def _seeded(device: torch.device, seeds: Sequence[int]
 
 
 def step(owner, key: tuple, fn: Callable, inputs: Sequence[torch.Tensor],
-         reads: Sequence[torch.Tensor] = (), seeds: Sequence[int] = ()):
+         reads: Sequence[torch.Tensor] = (), seeds: Sequence[int] = (), *,
+         graph: bool = True, groups: Sequence = ()):
     """A training dispatch ``fn(generators, *inputs)``: the body updates
     tensors in place (parameters, optimizer state; all of them in
     ``reads``) and returns its losses.  ``generators`` are one
     ``torch.Generator`` on the inputs' device for each of ``seeds``,
     seeded with it.
 
-    On CUDA tensors a signature's first call runs ``fn`` eagerly on the
-    caller's graph stream (its warm-up: no extra step is taken), its
-    second captures ``fn`` and replays the graph once (the step is taken
-    by the replay), and every later call replays it, each graph's
-    generators seeded from ``seeds`` first.  Returns fresh tensors in the
-    structure ``fn`` returns.  On other tensors, ``fn`` itself.  ``fn``
-    must leave no ``.grad`` behind (a captured backward allocates them in
-    the graph's pool, which the next replay of another graph may reuse)
-    and must not wait for the device.
+    Where :func:`capturable` (on CUDA tensors, every one of ``groups``
+    NCCL) and ``graph`` is True, a signature's first call runs ``fn``
+    eagerly on the caller's graph stream (its warm-up: no extra step is
+    taken), its second captures ``fn`` and replays the graph once (the
+    step is taken by the replay), and every later call replays it, each
+    graph's generators seeded from ``seeds`` first.  Returns fresh
+    tensors in the structure ``fn`` returns.  Else ``fn`` itself.  ``fn``
+    may run collectives over ``groups``, must leave no ``.grad`` behind
+    (a captured backward allocates them in the graph's pool, which the
+    next replay of another graph may reuse) and must not wait for the
+    device.
     """
     device = inputs[0].device
-    if not enabled(inputs[0]):
+    if not (graph and capturable(inputs[0], groups)):
         return fn(_seeded(device, seeds), *inputs)
     if device.type == "cuda" and device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return step(owner, key, fn, inputs, reads, seeds)
+            return step(owner, key, fn, inputs, reads, seeds, groups=groups)
     stream = torch.cuda.current_stream(device)
-    sig = _signature(key, stream, inputs, reads)
+    sig = _signature(key, stream, inputs, reads, groups)
     cache = cache_of(owner)
     with cache.lock:
         entry = cache.graphs.get(sig)
@@ -356,6 +403,8 @@ def step(owner, key: tuple, fn: Callable, inputs: Sequence[torch.Tensor],
                              inputs, device, stream, generators,
                              warm_up=False)
             cache.graphs[sig] = entry
+            if groups:
+                _collective_owners.add(owner)
         else:
             for static, x in zip(entry.inputs, inputs):
                 static.copy_(x)
