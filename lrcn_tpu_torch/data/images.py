@@ -39,6 +39,7 @@ from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
 from lrcn_tpu_torch.models import vgg
 from lrcn_tpu_torch.models.vgg import VGGEncoder, vgg16_fc7_fn
 from lrcn_tpu_torch.utils import graphs
+from lrcn_tpu_torch.utils.profiling import span
 
 CROP = 224
 
@@ -279,56 +280,70 @@ def extract_features(
     snapshot (:meth:`FeatureStore.save_atomic`) lands every
     ``flush_every`` groups and once at the end.  The compute dtype is the
     encoder's.
+
+    Spans (``utils/profiling.py:span``): ``lrcn.extract`` around the
+    call; inside it, for each group, ``lrcn.extract.wait_decode`` (the
+    prefetched decode's ``result()``), ``lrcn.extract.upload``
+    (the pixels to the device), ``lrcn.extract.readback`` (the fc7 call
+    and its copy to the host) and ``lrcn.extract.store`` (L1
+    normalization and the store's ``add``s).
     """
     from concurrent.futures import ThreadPoolExecutor
 
-    todo = (store.missing(image_paths) if store is not None
-            else list(dict.fromkeys(int(i) for i in image_paths)))
-    device = encoder.device
-    avg = torch.from_numpy(np.asarray(average_image, np.float32)).to(device)
+    with span("lrcn.extract"):
+        todo = (store.missing(image_paths) if store is not None
+                else list(dict.fromkeys(int(i) for i in image_paths)))
+        device = encoder.device
+        avg = torch.from_numpy(np.asarray(average_image, np.float32)
+                               ).to(device)
 
-    def load_host_batch(ids: list) -> np.ndarray:
-        imgs = load_images([image_paths[i] for i in ids])
-        pad = batch_size - len(ids)
-        if pad:
-            imgs = np.concatenate(
-                [imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
-        return imgs
+        def load_host_batch(ids: list) -> np.ndarray:
+            imgs = load_images([image_paths[i] for i in ids])
+            pad = batch_size - len(ids)
+            if pad:
+                imgs = np.concatenate(
+                    [imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
+            return imgs
 
-    def load_host_group(id_batches: list[list]) -> np.ndarray:
-        return np.stack([load_host_batch(ids) for ids in id_batches])
+        def load_host_group(id_batches: list[list]) -> np.ndarray:
+            return np.stack([load_host_batch(ids) for ids in id_batches])
 
-    id_batches = [todo[s:s + batch_size]
-                  for s in range(0, len(todo), batch_size)]
-    id_groups = [id_batches[s:s + scan_depth]
-                 for s in range(0, len(id_batches), scan_depth)]
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        # depth-1 prefetch: exactly one in-flight decode future
-        next_future = (pool.submit(load_host_group, id_groups[0])
-                       if id_groups else None)
-        for gi, group in enumerate(id_groups):
-            imgs = next_future.result()
-            next_future = (
-                pool.submit(load_host_group, id_groups[gi + 1])
-                if gi + 1 < len(id_groups) else None)
-            group_feats = normalize_and_fc7(
-                encoder, torch.from_numpy(imgs).to(device), avg
-            ).cpu().numpy()
-            for ids, feats in zip(group, group_feats):
-                feats = feats[:len(ids)]
-                if normalize:
-                    feats = l1_normalize(feats)
-                if store is None:   # dim comes from the encoder's output
-                    store = FeatureStore(dim=feats.shape[-1],
-                                         normalized=normalize)
-                for i, f in zip(ids, feats):
-                    store.add(i, f)
-            if (checkpoint_dir is not None and flush_every > 0
-                    and (gi + 1) % flush_every == 0
-                    and gi + 1 < len(id_groups)):
-                store.save_atomic(checkpoint_dir)
-    if store is None:
-        store = FeatureStore(normalized=normalize)
-    if checkpoint_dir is not None:
-        store.save_atomic(checkpoint_dir)
-    return store
+        id_batches = [todo[s:s + batch_size]
+                      for s in range(0, len(todo), batch_size)]
+        id_groups = [id_batches[s:s + scan_depth]
+                     for s in range(0, len(id_batches), scan_depth)]
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            # depth-1 prefetch: exactly one in-flight decode future
+            next_future = (pool.submit(load_host_group, id_groups[0])
+                           if id_groups else None)
+            for gi, group in enumerate(id_groups):
+                with span("lrcn.extract.wait_decode"):
+                    imgs = next_future.result()
+                next_future = (
+                    pool.submit(load_host_group, id_groups[gi + 1])
+                    if gi + 1 < len(id_groups) else None)
+                with span("lrcn.extract.upload"):
+                    imgs = torch.from_numpy(imgs).to(device)
+                with span("lrcn.extract.readback"):
+                    group_feats = normalize_and_fc7(encoder, imgs, avg
+                                                    ).cpu().numpy()
+                with span("lrcn.extract.store"):
+                    for ids, feats in zip(group, group_feats):
+                        feats = feats[:len(ids)]
+                        if normalize:
+                            feats = l1_normalize(feats)
+                        # the store's dim comes from the encoder's output
+                        if store is None:
+                            store = FeatureStore(dim=feats.shape[-1],
+                                                 normalized=normalize)
+                        for i, f in zip(ids, feats):
+                            store.add(i, f)
+                if (checkpoint_dir is not None and flush_every > 0
+                        and (gi + 1) % flush_every == 0
+                        and gi + 1 < len(id_groups)):
+                    store.save_atomic(checkpoint_dir)
+        if store is None:
+            store = FeatureStore(normalized=normalize)
+        if checkpoint_dir is not None:
+            store.save_atomic(checkpoint_dir)
+        return store

@@ -32,6 +32,7 @@ from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
 from lrcn_tpu_torch.decode.beam import rows_search, search
 from lrcn_tpu_torch.decode.sample import best_of_n_search
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
+from lrcn_tpu_torch.utils.profiling import span
 
 MAX_INFLIGHT = 4   # searches queued ahead of the oldest fetch
 
@@ -70,65 +71,80 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
     ``resident_store``: upload the whole feature table to ``device`` once
     and gather rows there by index; by default when the run decodes at
     least as many rows as the table holds.
+
+    Spans (``utils/profiling.py:span``): ``lrcn.generate`` around the
+    call; inside it ``lrcn.generate.table`` (the resident table's
+    ``store.table()``, L1 normalization, cast and upload),
+    ``lrcn.generate.enqueue`` (a group's row index or gather and its
+    search call), ``lrcn.generate.fetch`` (its tokens to the host) and
+    ``lrcn.generate.detokenize``.
     """
-    device = as_device(device)
-    if decoder.device != device:
-        raise ValueError(f"decoder is on {decoder.device}, not {device}")
-    if normalize is None:
-        normalize = not store.normalized
-    if sample_n > 0:
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        scan_depth, resident_store = 1, False
-    if resident_store is None:
-        resident_store = 0 < len(store) <= len(image_ids)
-    feat_dtype = decoder.compute_dtype   # the search casts to it first
-    max_inflight = max(1, max_inflight)
+    with span("lrcn.generate"):
+        device = as_device(device)
+        if decoder.device != device:
+            raise ValueError(f"decoder is on {decoder.device}, not {device}")
+        if normalize is None:
+            normalize = not store.normalized
+        if sample_n > 0:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            scan_depth, resident_store = 1, False
+        if resident_store is None:
+            resident_store = 0 < len(store) <= len(image_ids)
+        feat_dtype = decoder.compute_dtype   # the search casts to it first
+        max_inflight = max(1, max_inflight)
 
-    table = None
-    if resident_store and len(store):
-        host = np.asarray(store.table(), np.float32)
-        if normalize:
-            host = l1_normalize(host)
-        table = torch.from_numpy(host).to(feat_dtype).to(device)
+        table = None
+        if resident_store and len(store):
+            with span("lrcn.generate.table"):
+                host = np.asarray(store.table(), np.float32)
+                if normalize:
+                    host = l1_normalize(host)
+                table = torch.from_numpy(host).to(feat_dtype).to(device)
 
-    lines: list[str] = []
-    pending: list[tuple[torch.Tensor, int]] = []   # (device tokens, n_real)
+        lines: list[str] = []
+        # (device tokens, n_real)
+        pending: list[tuple[torch.Tensor, int]] = []
 
-    def drain_one():
-        tokens, n_real = pending.pop(0)
-        lines.extend(detokenize_batch(tokens.cpu().numpy()[:n_real], vocab))
+        def drain_one():
+            tokens, n_real = pending.pop(0)
+            with span("lrcn.generate.fetch"):
+                tokens = tokens.cpu().numpy()
+            with span("lrcn.generate.detokenize"):
+                lines.extend(detokenize_batch(tokens[:n_real], vocab))
 
-    rows_per_group = batch_size * max(1, scan_depth)
-    for start in range(0, len(image_ids), rows_per_group):
-        chunk = list(image_ids[start:start + rows_per_group])
-        n_real = len(chunk)
-        # pad to the full group with the last id: rows are independent
-        chunk += [chunk[-1]] * (rows_per_group - n_real)
-        if table is not None:
-            idx = torch.from_numpy(store.rows(chunk).astype(np.int64))
-            tokens, _ = rows_search(decoder, table, idx.to(device),
-                                    beam_width=beam_width,
-                                    max_words=max_words)
-        else:
-            feats = store.gather(chunk).astype(np.float32)
-            if normalize:
-                feats = l1_normalize(feats)
-            feats = torch.from_numpy(feats).to(device)
-            if sample_n > 0:
-                tokens, _ = best_of_n_search(
-                    decoder, feats, n_samples=sample_n,
-                    temperature=temperature, max_words=max_words,
-                    generator=generator)
-            else:
-                tokens, _ = search(decoder, feats, beam_width=beam_width,
-                                   max_words=max_words)
-        pending.append((tokens, n_real))
-        if len(pending) > max_inflight:
+        rows_per_group = batch_size * max(1, scan_depth)
+        for start in range(0, len(image_ids), rows_per_group):
+            chunk = list(image_ids[start:start + rows_per_group])
+            n_real = len(chunk)
+            # pad to the full group with the last id: rows are independent
+            chunk += [chunk[-1]] * (rows_per_group - n_real)
+            with span("lrcn.generate.enqueue"):
+                if table is not None:
+                    idx = torch.from_numpy(store.rows(chunk).astype(np.int64))
+                    tokens, _ = rows_search(decoder, table, idx.to(device),
+                                            beam_width=beam_width,
+                                            max_words=max_words)
+                else:
+                    feats = store.gather(chunk).astype(np.float32)
+                    if normalize:
+                        feats = l1_normalize(feats)
+                    feats = torch.from_numpy(feats).to(device)
+                    if sample_n > 0:
+                        tokens, _ = best_of_n_search(
+                            decoder, feats, n_samples=sample_n,
+                            temperature=temperature, max_words=max_words,
+                            generator=generator)
+                    else:
+                        tokens, _ = search(decoder, feats,
+                                           beam_width=beam_width,
+                                           max_words=max_words)
+            pending.append((tokens, n_real))
+            if len(pending) > max_inflight:
+                drain_one()
+        while pending:
             drain_one()
-    while pending:
-        drain_one()
-    return lines
+        return lines
 
 
 def write_candidate_files(lines: Sequence[str], image_ids: Sequence[int],

@@ -51,6 +51,7 @@ from lrcn_tpu_torch.train.checkpoint import (make_position, resume_start,
                                              save_checkpoint)
 from lrcn_tpu_torch.train.metrics import MetricsLogger
 from lrcn_tpu_torch.train.trainer import fold_in
+from lrcn_tpu_torch.utils.profiling import span
 
 
 class JointTrainer:
@@ -141,12 +142,16 @@ class JointTrainer:
             futures = deque(pool.submit(load, it)
                             for it in items[:self.prefetch_depth])
             for i in range(len(items)):
-                host = futures.popleft().result()   # drop the ref: a kept
-                # future pins its decoded (B,224,224,3) array for the epoch
+                with span("lrcn.train.wait_data"):
+                    # drop the ref: a kept future pins its decoded
+                    # (B,224,224,3) array for the epoch
+                    host = futures.popleft().result()
                 if i + self.prefetch_depth < len(items):
                     futures.append(
                         pool.submit(load, items[i + self.prefetch_depth]))
-                yield transform(host)
+                with span("lrcn.train.batch"):
+                    dev = transform(host)
+                yield dev
 
     # --- loops ---
 
@@ -160,62 +165,73 @@ class JointTrainer:
         updated parameters and optimizer.  ``start_dispatch`` skips
         completed dispatches (no image decode for them); step keys derive
         from (epoch key, index); ``on_checkpoint(dispatch, params,
-        opt_state)`` fires every ``ckpt_every`` dispatches."""
-        t0 = time.time()
-        seen = 0
-        n_chunks = 0
+        opt_state)`` fires every ``ckpt_every`` dispatches.
 
-        def images_per_sec():
-            return round(seen / (time.time() - t0), 1)
+        Spans (``utils/profiling.py:span``): ``lrcn.train.epoch`` around
+        the call; inside it, from the prefetch feed,
+        ``lrcn.train.wait_data`` (a decode future's ``result()``) and
+        ``lrcn.train.batch`` (``put_local``), then ``lrcn.train.log``
+        (``metrics.log`` with its loss readback) and ``lrcn.train.sync``
+        (the closing synchronize)."""
+        with span("lrcn.train.epoch"):
+            t0 = time.time()
+            seen = 0
+            n_chunks = 0
 
-        def maybe_ckpt(dispatch, p, o):
-            if ckpt_every and on_checkpoint and dispatch % ckpt_every == 0:
-                on_checkpoint(dispatch, p, o)
+            def images_per_sec():
+                return round(seen / (time.time() - t0), 1)
 
-        if self.steps_per_dispatch == 1:
-            single = list(iterate_epoch(batches, shuffle_rng))
-        else:
-            chunks, tail = chunk_same_shape(
-                batches, self.steps_per_dispatch, shuffle_rng)
-            n_chunks = len(chunks)
-            skip = min(start_dispatch, n_chunks)
-            offset = sum(len(c) for c in chunks[:skip])
-            feed = self._prefetched(
-                chunks[skip:], self._load_chunk,
-                lambda host: self.step.put_local(*host))
-            for ci, (images_k, tokens_k, lengths_k) in enumerate(feed):
-                params, opt_state, losses = self.step.multi_step(
-                    params, opt_state, images_k, tokens_k, lengths_k,
-                    rng_key, offset)
-                k = images_k.shape[0]
-                offset += k
-                seen += k * images_k.shape[1] * self._data_size
-                gi = skip + ci
-                if log_every and (gi * k) % log_every < k:
-                    self.metrics.log(event="joint_train", batch=gi * k,
-                                     loss=round(float(losses[-1]), 4),
-                                     images_per_sec=images_per_sec())
-                maybe_ckpt(gi + 1, params, opt_state)
-            rng_key = fold_in(rng_key, offset + 1)
-            single = tail   # per-shape remainders, already shuffled
-        skip_single = max(0, start_dispatch - n_chunks)
-        single_base = rng_key
-        feed = self._prefetched(single[skip_single:], self._load_local,
-                                lambda host: self.step.put_local(*host))
-        for i, dev in enumerate(feed):
-            j = skip_single + i
-            params, opt_state, loss = self.step(
-                params, opt_state, *dev, fold_in(single_base, j))
-            seen += dev[0].shape[0] * self._data_size
-            if log_every and j % log_every == 0:
-                self.metrics.log(event="joint_train", batch=j,
-                                 loss=round(float(loss), 4),
-                                 images_per_sec=images_per_sec())
-            maybe_ckpt(n_chunks + j + 1, params, opt_state)
-        rng_key = fold_in(single_base, len(single) + 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return params, opt_state, rng_key
+            def maybe_ckpt(dispatch, p, o):
+                if ckpt_every and on_checkpoint and dispatch % ckpt_every == 0:
+                    on_checkpoint(dispatch, p, o)
+
+            if self.steps_per_dispatch == 1:
+                single = list(iterate_epoch(batches, shuffle_rng))
+            else:
+                chunks, tail = chunk_same_shape(
+                    batches, self.steps_per_dispatch, shuffle_rng)
+                n_chunks = len(chunks)
+                skip = min(start_dispatch, n_chunks)
+                offset = sum(len(c) for c in chunks[:skip])
+                feed = self._prefetched(
+                    chunks[skip:], self._load_chunk,
+                    lambda host: self.step.put_local(*host))
+                for ci, (images_k, tokens_k, lengths_k) in enumerate(feed):
+                    params, opt_state, losses = self.step.multi_step(
+                        params, opt_state, images_k, tokens_k, lengths_k,
+                        rng_key, offset)
+                    k = images_k.shape[0]
+                    offset += k
+                    seen += k * images_k.shape[1] * self._data_size
+                    gi = skip + ci
+                    if log_every and (gi * k) % log_every < k:
+                        with span("lrcn.train.log"):
+                            self.metrics.log(event="joint_train", batch=gi * k,
+                                             loss=round(float(losses[-1]), 4),
+                                             images_per_sec=images_per_sec())
+                    maybe_ckpt(gi + 1, params, opt_state)
+                rng_key = fold_in(rng_key, offset + 1)
+                single = tail   # per-shape remainders, already shuffled
+            skip_single = max(0, start_dispatch - n_chunks)
+            single_base = rng_key
+            feed = self._prefetched(single[skip_single:], self._load_local,
+                                    lambda host: self.step.put_local(*host))
+            for i, dev in enumerate(feed):
+                j = skip_single + i
+                params, opt_state, loss = self.step(
+                    params, opt_state, *dev, fold_in(single_base, j))
+                seen += dev[0].shape[0] * self._data_size
+                if log_every and j % log_every == 0:
+                    with span("lrcn.train.log"):
+                        self.metrics.log(event="joint_train", batch=j,
+                                         loss=round(float(loss), 4),
+                                         images_per_sec=images_per_sec())
+                maybe_ckpt(n_chunks + j + 1, params, opt_state)
+            rng_key = fold_in(single_base, len(single) + 1)
+            if self.device.type == "cuda":
+                with span("lrcn.train.sync"):
+                    torch.cuda.synchronize(self.device)
+            return params, opt_state, rng_key
 
     def average_loss(self, params: JointParams, batches: Sequence[Batch]
                      ) -> float:

@@ -74,6 +74,7 @@ from lrcn_tpu_torch.train.checkpoint import (OPT_KEYS, compute_dtype_of,
                                              save_checkpoint)
 from lrcn_tpu_torch.train.metrics import MetricsLogger
 from lrcn_tpu_torch.utils import graphs
+from lrcn_tpu_torch.utils.profiling import span
 
 _MASK64 = (1 << 64) - 1
 
@@ -400,59 +401,73 @@ class Trainer:
         key, index), so the first N dispatches are skipped and the rest
         replays the uninterrupted run.  ``on_checkpoint(dispatch, params,
         opt)`` fires every ``ckpt_every`` dispatches.
+
+        Spans (``utils/profiling.py:span``): ``lrcn.train.epoch`` around
+        the call; inside it ``lrcn.train.batch`` (a dispatch's
+        ``_stacked``), ``lrcn.train.log`` (``metrics.log`` with its loss
+        readback) and ``lrcn.train.sync`` (the closing synchronize).
         """
-        t0 = time.time()
-        tokens_seen = 0
-        single_batches, single_rng, n_chunks = batches, shuffle_rng, 0
+        with span("lrcn.train.epoch"):
+            t0 = time.time()
+            tokens_seen = 0
+            single_batches, single_rng, n_chunks = batches, shuffle_rng, 0
 
-        def words_per_sec():
-            return round(tokens_seen / (time.time() - t0), 1)
+            def words_per_sec():
+                return round(tokens_seen / (time.time() - t0), 1)
 
-        def maybe_ckpt(dispatch):
-            if ckpt_every and on_checkpoint and dispatch % ckpt_every == 0:
-                on_checkpoint(dispatch, params, opt)
+            def maybe_ckpt(dispatch):
+                if ckpt_every and on_checkpoint and dispatch % ckpt_every == 0:
+                    on_checkpoint(dispatch, params, opt)
 
-        k = self.steps_per_dispatch
-        table = self._device_table(store)
-        if k > 1:
-            chunks, tail = chunk_same_shape(batches, k, shuffle_rng)
-            n_chunks = len(chunks)
-            offset = 0
-            for ci, chunk in enumerate(chunks):
-                if ci < start_dispatch:     # resumed: already trained
+            k = self.steps_per_dispatch
+            table = self._device_table(store)
+            if k > 1:
+                chunks, tail = chunk_same_shape(batches, k, shuffle_rng)
+                n_chunks = len(chunks)
+                offset = 0
+                for ci, chunk in enumerate(chunks):
+                    if ci < start_dispatch:     # resumed: already trained
+                        offset += len(chunk)
+                        continue
+                    with span("lrcn.train.batch"):
+                        lengths_k, dev = self._stacked(chunk, store)
+                    losses = self._dispatch(params, opt, *dev, table,
+                                            rng_key, offset)
                     offset += len(chunk)
-                    continue
-                lengths_k, dev = self._stacked(chunk, store)
-                losses = self._dispatch(params, opt, *dev, table, rng_key,
-                                        offset)
-                offset += len(chunk)
-                tokens_seen += int(np.sum(np.maximum(lengths_k, 0)))
-                if log_every and (ci * len(chunk)) % log_every < len(chunk):
-                    self.metrics.log(event="train", batch=ci * len(chunk),
-                                     loss=round(float(losses[-1]), 4),
-                                     words_per_sec=words_per_sec())
-                maybe_ckpt(ci + 1)
-            rng_key = fold_in(rng_key, offset + 1)
-            single_batches, single_rng = tail, None   # already shuffled
-        # single steps: materialize the (possibly shuffled) order so that a
-        # resume can slice past completed batches
-        order = list(iterate_epoch(single_batches, single_rng))
-        skip = max(0, start_dispatch - n_chunks)
-        base = rng_key
-        for j in range(skip, len(order)):
-            _, dev = self._stacked([order[j]], store)
-            loss = self._dispatch(params, opt, *dev, table, base, j)[0]
-            tokens_seen += int(np.sum(np.maximum(order[j].lengths, 0)))
-            if log_every and j % log_every == 0:
-                self.metrics.log(event="train", batch=j,
-                                 loss=round(float(loss), 4),
+                    tokens_seen += int(np.sum(np.maximum(lengths_k, 0)))
+                    batch = ci * len(chunk)
+                    if log_every and batch % log_every < len(chunk):
+                        with span("lrcn.train.log"):
+                            self.metrics.log(event="train", batch=batch,
+                                             loss=round(float(losses[-1]), 4),
+                                             words_per_sec=words_per_sec())
+                    maybe_ckpt(ci + 1)
+                rng_key = fold_in(rng_key, offset + 1)
+                single_batches, single_rng = tail, None   # already shuffled
+            # single steps: materialize the (possibly shuffled) order so
+            # that a resume can slice past completed batches
+            order = list(iterate_epoch(single_batches, single_rng))
+            skip = max(0, start_dispatch - n_chunks)
+            base = rng_key
+            for j in range(skip, len(order)):
+                with span("lrcn.train.batch"):
+                    _, dev = self._stacked([order[j]], store)
+                loss = self._dispatch(params, opt, *dev, table, base, j)[0]
+                tokens_seen += int(np.sum(np.maximum(order[j].lengths, 0)))
+                if log_every and j % log_every == 0:
+                    with span("lrcn.train.log"):
+                        self.metrics.log(event="train", batch=j,
+                                         loss=round(float(loss), 4),
+                                         words_per_sec=words_per_sec())
+                maybe_ckpt(n_chunks + j + 1)
+            rng_key = fold_in(base, len(order) + 1)
+            with span("lrcn.train.sync"):
+                self._sync()
+            with span("lrcn.train.log"):
+                self.metrics.log(event="epoch_train_done",
+                                 batches=len(batches),
                                  words_per_sec=words_per_sec())
-            maybe_ckpt(n_chunks + j + 1)
-        rng_key = fold_in(base, len(order) + 1)
-        self._sync()
-        self.metrics.log(event="epoch_train_done", batches=len(batches),
-                         words_per_sec=words_per_sec())
-        return params, opt, rng_key
+            return params, opt, rng_key
 
     def _eval_fn(self, params, table, tokens_k, lengths_k, rows_k
                  ) -> torch.Tensor:

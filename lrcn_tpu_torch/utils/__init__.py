@@ -1,3 +1,3 @@
-from lrcn_tpu_torch.utils.profiling import StepTimer, trace
+from lrcn_tpu_torch.utils.profiling import span, trace
 
-__all__ = ["StepTimer", "trace"]
+__all__ = ["span", "trace"]

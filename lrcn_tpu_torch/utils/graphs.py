@@ -98,6 +98,7 @@ import torch
 import torch.distributed as dist
 
 from lrcn_tpu_torch.ops.kernels import launches
+from lrcn_tpu_torch.utils.profiling import span
 
 # torch hands out the streams of a pool of 32 a device and priority, in turn
 POOL_STREAMS = 32
@@ -282,6 +283,11 @@ def run(owner: torch.nn.Module, key: tuple, fn: Callable,
     collectives over ``groups``, must not wait for the device, and is
     called twice at capture (warm-up, capture).  The inputs share one
     device.
+
+    Spans (``utils/profiling.py:span``), on the graph path only:
+    ``lrcn.graph.eager`` (a signature's first call), ``lrcn.graph.capture``
+    (the warm-up and the capture) and ``lrcn.graph.replay`` (the copy into
+    the static inputs, the replay and the copy out); none inside ``fn``.
     """
     if not (graph and capturable(inputs[0], groups)):
         return fn(*inputs)
@@ -298,23 +304,26 @@ def run(owner: torch.nn.Module, key: tuple, fn: Callable,
         first = sig not in cache.seen
         cache.seen.add(sig)
     if first:
-        with torch.inference_mode():
+        with span("lrcn.graph.eager"), torch.inference_mode():
             return fn(*inputs)
     inference = torch.is_inference_mode_enabled()
     with cache.lock, torch.inference_mode():
         entry = cache.graphs.get(sig)
-        if entry is None:
-            entry = _capture(cache, key, fn, inputs, device, stream,
-                             generators)
+        fresh = entry is None
+        if fresh:
+            with span("lrcn.graph.capture"):
+                entry = _capture(cache, key, fn, inputs, device, stream,
+                                 generators)
             cache.graphs[sig] = entry
             if groups:
                 _collective_owners.add(owner)
-        else:
-            for static, x in zip(entry.inputs, inputs):
-                static.copy_(x)
-        _replay(entry, stream)
-        with torch.inference_mode(inference):
-            outs = tuple(o.clone() for o in entry.outputs)
+        with span("lrcn.graph.replay"):
+            if not fresh:
+                for static, x in zip(entry.inputs, inputs):
+                    static.copy_(x)
+            _replay(entry, stream)
+            with torch.inference_mode(inference):
+                outs = tuple(o.clone() for o in entry.outputs)
     return outs[0] if entry.single else outs
 
 
@@ -374,6 +383,10 @@ def step(owner, key: tuple, fn: Callable, inputs: Sequence[torch.Tensor],
     (a captured backward allocates them in the graph's pool, which the
     next replay of another graph may reuse) and must not wait for the
     device.
+
+    Spans, as :func:`run`'s: ``lrcn.graph.eager`` (a signature's first
+    call), ``lrcn.graph.capture`` and ``lrcn.graph.replay`` (the copy in,
+    the seeding, the replay and the copy out).
     """
     device = inputs[0].device
     if not (graph and capturable(inputs[0], groups)):
@@ -388,28 +401,32 @@ def step(owner, key: tuple, fn: Callable, inputs: Sequence[torch.Tensor],
         entry = cache.graphs.get(sig)
         if entry is None and sig not in cache.seen:
             cache.seen.add(sig)
-            with _capture_lock:
-                side = _graph_stream(device, stream)
-            side.wait_stream(stream)
-            with torch.cuda.stream(side):
-                out = fn(_seeded(device, seeds), *inputs)
-            stream.wait_stream(side)
-            if isinstance(out, torch.Tensor):
-                return out.clone()
-            return tuple(o.clone() for o in out)
-        if entry is None:
+            with span("lrcn.graph.eager"):
+                with _capture_lock:
+                    side = _graph_stream(device, stream)
+                side.wait_stream(stream)
+                with torch.cuda.stream(side):
+                    out = fn(_seeded(device, seeds), *inputs)
+                stream.wait_stream(side)
+                if isinstance(out, torch.Tensor):
+                    return out.clone()
+                return tuple(o.clone() for o in out)
+        fresh = entry is None
+        if fresh:
             generators = [torch.Generator(device=device) for _ in seeds]
-            entry = _capture(cache, key, functools.partial(fn, generators),
-                             inputs, device, stream, generators,
-                             warm_up=False)
+            with span("lrcn.graph.capture"):
+                entry = _capture(cache, key,
+                                 functools.partial(fn, generators), inputs,
+                                 device, stream, generators, warm_up=False)
             cache.graphs[sig] = entry
             if groups:
                 _collective_owners.add(owner)
-        else:
-            for static, x in zip(entry.inputs, inputs):
-                static.copy_(x)
-        for g, s in zip(entry.generators, seeds):
-            g.manual_seed(s)
-        _replay(entry, stream)
-        outs = tuple(o.clone() for o in entry.outputs)
+        with span("lrcn.graph.replay"):
+            if not fresh:
+                for static, x in zip(entry.inputs, inputs):
+                    static.copy_(x)
+            for g, s in zip(entry.generators, seeds):
+                g.manual_seed(s)
+            _replay(entry, stream)
+            outs = tuple(o.clone() for o in entry.outputs)
     return outs[0] if entry.single else outs

@@ -1,16 +1,27 @@
-"""Profiling and step timing (counterpart of
-``lrcn_tpu/utils/profiling.py``).
+"""Profiling (counterpart of ``lrcn_tpu/utils/profiling.py``).
 
 - ``trace(logdir)``: ``torch.profiler`` around the enclosed block, its
   Chrome trace written into ``logdir`` (viewable in Perfetto or
   ``chrome://tracing``);
+- ``span(name)``: a named range of the program's host work in that
+  trace, on the clock of the device's kernels and copies; nothing while
+  no profiler records;
 - ``device_time_ms(trace_dir)``: the device's busy milliseconds in the
   newest trace there: the union of the CUDA kernels' intervals;
 - ``sync(tree)``: wait for the CUDA devices that a nested container of
-  tensors lives on;
-- ``measure_device_time_ms``: busy milliseconds per call of a function;
-- ``StepTimer``: wall-clock step statistics, synchronized only at the
-  edges of a step.
+  tensors lives on.
+
+The program's spans are named ``lrcn.<layer>.<phase>`` and nest on each
+thread:
+
+- ``lrcn.generate`` (``decode/writer.py:generate_captions``) holds
+  ``.table``, ``.enqueue``, ``.fetch`` and ``.detokenize``;
+- ``lrcn.extract`` (``data/images.py:extract_features``) holds
+  ``.wait_decode``, ``.upload``, ``.readback`` and ``.store``;
+- ``lrcn.graph.eager``, ``.capture`` and ``.replay``
+  (``utils/graphs.py:run`` and ``step``) sit inside whatever calls them;
+- ``lrcn.train.epoch`` (both trainers' ``train_epoch``) holds
+  ``lrcn.train.batch``, ``.wait_data``, ``.log`` and ``.sync``.
 """
 
 from __future__ import annotations
@@ -19,12 +30,12 @@ import contextlib
 import glob
 import json
 import os
-import tempfile
 import time
-from dataclasses import dataclass, field
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _leaves(tree):
@@ -72,6 +83,26 @@ def trace(logdir: str, device="cuda"):
             os.path.join(logdir, f"{time.time_ns()}.trace.json"))
 
 
+def span(name: str):
+    """A context manager that marks the enclosed host work as ``name``
+    (``lrcn.<layer>.<phase>``) in a ``torch.profiler`` trace: while a
+    profile records, ``torch.profiler.record_function(name)``, a
+    ``user_annotation`` event on the clock of the trace's kernels and
+    copies, whose parent is the span that encloses it on the thread;
+    else one shared no-op context, which makes no ``RecordFunction`` and
+    calls no op.
+
+    "Records" is the profiler's own process-wide flag, set from a
+    profile's start to its stop: the thread-local one reads False on
+    every thread under ``profile_all_threads`` (:func:`trace`).  On a
+    thread that a profile does not record the range records nothing.
+    Never open one inside a body that a CUDA graph captures or
+    ``torch.export`` traces."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 def sync(tree) -> None:
     """Wait for all work queued on every CUDA device that a tensor among
     the leaves of ``tree`` (nested dicts, lists and tuples) lives on.
@@ -117,64 +148,3 @@ def device_time_ms(trace_dir: str) -> float:
 
     kernels = spans("kernel")
     return _union_us(kernels if kernels else spans("cpu_op")) / 1e3
-
-
-def measure_device_time_ms(fn, *args, iters: int = 3,
-                           trace_dir: str | None = None) -> float:
-    """Busy milliseconds per call of ``fn(*args)``: one warm-up call, then
-    a trace of ``iters`` back-to-back calls; the device traced is the CUDA
-    device of the arguments or the result, else the CPU."""
-    logdir = trace_dir or tempfile.mkdtemp(prefix="lrcn_trace_")
-    out = fn(*args)
-    sync(out)
-    devices = _cuda_devices((args, out))
-    with trace(logdir, device=next(iter(devices), "cpu")):
-        for _ in range(iters):
-            out = fn(*args)
-        sync(out)
-    return device_time_ms(logdir) / iters
-
-
-@dataclass
-class StepTimer:
-    """Accumulates per-step wall times; sync only at measurement edges."""
-
-    _times: list = field(default_factory=list)
-    _t0: float | None = None
-
-    def start(self, outputs=None) -> None:
-        if outputs is not None:
-            sync(outputs)
-        self._t0 = time.perf_counter()
-
-    def stop(self, outputs=None) -> float:
-        if self._t0 is None:
-            raise RuntimeError("stop() without start()")
-        if outputs is not None:
-            sync(outputs)
-        dt = time.perf_counter() - self._t0
-        self._times.append(dt)
-        self._t0 = None
-        return dt
-
-    @property
-    def count(self) -> int:
-        return len(self._times)
-
-    def mean(self) -> float:
-        return float(np.mean(self._times)) if self._times else 0.0
-
-    def percentile(self, p: float) -> float:
-        return float(np.percentile(self._times, p)) if self._times else 0.0
-
-    def throughput(self, items_per_step: int) -> float:
-        m = self.mean()
-        return items_per_step / m if m else 0.0
-
-    def summary(self) -> dict:
-        return {
-            "steps": self.count,
-            "mean_s": round(self.mean(), 6),
-            "p50_s": round(self.percentile(50), 6),
-            "p95_s": round(self.percentile(95), 6),
-        }
