@@ -17,6 +17,10 @@ format:
 feature copy (lrcn.jl:369-376) into one fancy-index + one transfer.
 Extraction is resumable like the reference (skips ids already present,
 lrcn.jl:203) via the append + save cycle.
+
+``device_table`` puts a store's whole table on a device in a compute
+dtype: the float32 rows go up as they are stored, through pinned blocks
+on a card, and are cast there.
 """
 
 from __future__ import annotations
@@ -26,8 +30,11 @@ import os
 from typing import Iterable, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from lrcn_tpu_torch.config import CNN_FEATURE_DIM
+
+STAGE_BYTES = 16 << 20   # one pinned block of device_table's upload
 
 
 def l1_normalize(feats: np.ndarray) -> np.ndarray:
@@ -44,16 +51,42 @@ def l1_normalize(feats: np.ndarray) -> np.ndarray:
     return feats / np.where(sums == 0, 1.0, sums)
 
 
+def _read_only(array: np.ndarray) -> np.ndarray:
+    """``array`` itself where numpy already refuses writes to it, else a
+    view that refuses them (the array stays writable)."""
+    if array.flags.writeable:
+        array = array.view()
+        array.flags.writeable = False
+    return array
+
+
 class FeatureStore:
-    """Mutable id -> feature mapping with mmap-able persistence."""
+    """Mutable id -> feature mapping with mmap-able persistence.
+
+    Rows live in at most two arrays: the rows loaded from disk (``load``:
+    the memory map itself, or one array with ``mmap=False``), then the
+    appended ones, written by ``add`` into one ``(capacity, dim)``
+    float32 array that grows geometrically.  So ``table()`` is a view, and
+    copies only for a store holding both kinds of row (extraction resumed
+    from disk), counted in ``table_copies``.
+
+    What ``table()`` and ``get`` return is read-only: a caller that wants
+    to write copies it, and cannot reach the store.  Such a view never
+    changes under its holder: ``add`` writes past the rows it shows, or
+    moves the rows to a larger array and leaves the old one as it is.
+    (``torch.from_numpy`` warns on a read-only array; ``device_table``
+    uploads one without it.)
+    """
 
     def __init__(self, dim: int = CNN_FEATURE_DIM, normalized: bool = False):
         self.dim = dim
         self.normalized = normalized
         self._index: dict[int, int] = {}
-        self._rows: list[np.ndarray] = []      # in-memory appended rows
+        self._added = np.empty((0, dim), np.float32)  # appended rows
+        self._n_added = 0
         self._mmap: np.ndarray | None = None   # rows loaded from disk
         self._mmap_count = 0
+        self.table_copies = 0   # table() calls that had to concatenate
 
     # --- construction ---
 
@@ -63,6 +96,7 @@ class FeatureStore:
         ids = list(feats)
         dim = int(np.asarray(feats[ids[0]]).reshape(-1).shape[0])
         store = cls(dim=dim, normalized=normalized)
+        store.reserve(len(ids))
         for i in ids:
             store.add(i, feats[i])
         return store
@@ -73,8 +107,10 @@ class FeatureStore:
             meta = json.load(f)
         store = cls(dim=meta["dim"], normalized=meta.get("normalized", False))
         ids = np.load(os.path.join(path, "ids.npy"))
+        # copy-on-write: the store never writes the map, and a writable
+        # one lets device_table read it through torch's threaded copy
         feats = np.load(os.path.join(path, "features.npy"),
-                        mmap_mode="r" if mmap else None)
+                        mmap_mode="c" if mmap else None)
         if feats.shape != (len(ids), store.dim):
             raise ValueError(f"corrupt store: features {feats.shape} vs "
                              f"{len(ids)} ids, dim {store.dim}")
@@ -85,12 +121,16 @@ class FeatureStore:
 
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
-        n = len(self)
+        n, m = len(self), self._mmap_count
+        # a copy even of a loaded store's rows: saving over the directory
+        # they are mapped from truncates the file
         feats = np.empty((n, self.dim), np.float32)
+        if m:
+            feats[:m] = self._mmap
+        feats[m:] = self._added[:self._n_added]
         ids = np.empty((n,), np.int64)
-        for image_id, row in self._index.items():
-            ids[row] = image_id
-            feats[row] = self._row(row)
+        ids[np.fromiter(self._index.values(), np.int64, count=n)] = (
+            np.fromiter(self._index, np.int64, count=n))
         np.save(os.path.join(path, "features.npy"), feats)
         np.save(os.path.join(path, "ids.npy"), ids)
         # meta last: a directory is a valid store iff meta.json exists,
@@ -161,8 +201,20 @@ class FeatureStore:
 
     def _row(self, row: int) -> np.ndarray:
         if row < self._mmap_count:
-            return np.asarray(self._mmap[row])
-        return self._rows[row - self._mmap_count]
+            return _read_only(np.asarray(self._mmap[row]))
+        return _read_only(self._added[row - self._mmap_count])
+
+    def reserve(self, n: int) -> None:
+        """Make room for ``n`` more appended rows, so that the next ``n``
+        ``add`` calls copy nothing but their own rows."""
+        if self._n_added + n > len(self._added):
+            self._resize(self._n_added + n)
+
+    def _resize(self, capacity: int) -> None:
+        # a new array: views of the old one keep their rows
+        added = np.empty((capacity, self.dim), np.float32)
+        added[:self._n_added] = self._added[:self._n_added]
+        self._added = added
 
     def add(self, image_id: int, feat: np.ndarray) -> None:
         feat = np.asarray(feat, np.float32).reshape(-1)
@@ -171,8 +223,11 @@ class FeatureStore:
         image_id = int(image_id)
         if image_id in self._index:
             raise KeyError(f"duplicate feature id {image_id}")
-        self._index[image_id] = self._mmap_count + len(self._rows)
-        self._rows.append(feat)
+        if self._n_added == len(self._added):
+            self._resize(max(64, 2 * len(self._added)))
+        self._added[self._n_added] = feat
+        self._index[image_id] = self._mmap_count + self._n_added
+        self._n_added += 1
 
     def get(self, image_id: int) -> np.ndarray:
         row = self._index.get(int(image_id))
@@ -189,13 +244,16 @@ class FeatureStore:
         """
         rows = np.fromiter((self._index[int(i)] for i in image_ids),
                            np.int64, count=len(image_ids))
-        if not self._rows:
-            if self._mmap_count == 0:
-                return np.empty((0, self.dim), np.float32)
+        m = self._mmap_count
+        if not m:
+            return self._added[rows]
+        if not self._n_added:
             return np.asarray(self._mmap[rows])
-        parts = ([np.asarray(self._mmap)] if self._mmap_count else [])
-        parts.append(np.stack(self._rows))
-        return np.concatenate(parts, axis=0)[rows]
+        feats = np.empty((len(rows), self.dim), np.float32)
+        loaded = rows < m
+        feats[loaded] = self._mmap[rows[loaded]]
+        feats[~loaded] = self._added[rows[~loaded] - m]
+        return feats
 
     def rows(self, image_ids: Sequence[int] | np.ndarray) -> np.ndarray:
         """Row indices of ``image_ids`` into ``table()`` -> (B,) int32.
@@ -207,16 +265,73 @@ class FeatureStore:
         return np.fromiter((self._index[int(i)] for i in image_ids),
                            np.int32, count=len(image_ids))
 
+    def _parts(self) -> list[np.ndarray]:
+        """The arrays that hold the rows, in row order: the loaded rows,
+        then the appended ones.  Writable, and the store's own: only for
+        reading."""
+        parts = [self._mmap] if self._mmap_count else []
+        if self._n_added:
+            parts.append(self._added[:self._n_added])
+        return parts
+
     def table(self) -> np.ndarray:
-        """The full (N, dim) float32 feature table, rows as in ``rows()``."""
-        parts = ([np.asarray(self._mmap)] if self._mmap_count else [])
-        if self._rows:
-            parts.append(np.stack(self._rows))
-        if not parts:
-            return np.empty((0, self.dim), np.float32)
-        return np.concatenate(parts, axis=0)
+        """The full (N, dim) float32 feature table, rows as in ``rows()``,
+        read-only: a view of the appended rows, or the loaded rows
+        themselves; a store holding both concatenates them (one copy,
+        counted in ``table_copies``)."""
+        parts = self._parts()
+        if len(parts) == 2:
+            self.table_copies += 1
+            return _read_only(np.concatenate(parts, axis=0))
+        return _read_only(parts[0] if parts else self._added[:0])
 
     def missing(self, image_ids: Iterable[int]) -> list[int]:
         """Ids not yet in the store (resumable extraction, lrcn.jl:203)."""
         return [i for i in dict.fromkeys(int(x) for x in image_ids)
                 if i not in self._index]
+
+
+def device_table(store: FeatureStore, device, dtype: torch.dtype, *,
+                 normalize: bool = False) -> torch.Tensor:
+    """``store.table()`` on ``device`` in ``dtype``, L1-normalized first
+    on the host (in float32) with ``normalize``.
+
+    The float32 rows are copied from the store's own arrays (a store
+    holding loaded and appended rows is not concatenated) to ``device``
+    and cast there.  On a card they go through two pinned blocks of
+    ``STAGE_BYTES``: torch's threaded copy fills one while the one before
+    is on its way (the caching host allocator hands the blocks out again
+    in later calls).  A card's cast rounds to nearest even as the host's
+    does: the same table bit for bit.
+    """
+    parts = [l1_normalize(store.table())] if normalize else store._parts()
+    device = torch.device(device)
+    card = device.type == "cuda"
+    table = torch.empty((len(store), store.dim), dtype=torch.float32,
+                        device=device)
+    step = max(1, STAGE_BYTES // (4 * store.dim))
+    blocks, row = [], 0
+    for part in parts:
+        src = torch.from_numpy(part)
+        blocks += [(row + s, src[s:s + step])
+                   for s in range(0, len(part), step)]
+        row += len(part)
+    stages: list[torch.Tensor] = []
+    copied: list[torch.cuda.Event] = []
+    for i, (row, block) in enumerate(blocks):
+        rows = table[row:row + len(block)]
+        if not card:
+            rows.copy_(block)
+            continue
+        j = i % 2
+        if len(stages) <= j:
+            stages.append(torch.empty((min(step, len(table)), store.dim),
+                                      pin_memory=True))
+            copied.append(torch.cuda.Event())
+        else:
+            copied[j].synchronize()   # the block's last copy has left it
+        stage = stages[j][:len(block)]
+        stage.copy_(block)
+        rows.copy_(stage, non_blocking=True)
+        copied[j].record(torch.cuda.current_stream(device))
+    return table.to(dtype)

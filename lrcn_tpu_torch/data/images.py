@@ -293,6 +293,8 @@ def extract_features(
     with span("lrcn.extract"):
         todo = (store.missing(image_paths) if store is not None
                 else list(dict.fromkeys(int(i) for i in image_paths)))
+        if store is not None:
+            store.reserve(len(todo))
         device = encoder.device
         avg = torch.from_numpy(np.asarray(average_image, np.float32)
                                ).to(device)
@@ -336,6 +338,7 @@ def extract_features(
                         if store is None:
                             store = FeatureStore(dim=feats.shape[-1],
                                                  normalized=normalize)
+                            store.reserve(len(todo))
                         for i, f in zip(ids, feats):
                             store.add(i, f)
                 if (checkpoint_dir is not None and flush_every > 0

@@ -28,7 +28,11 @@ from lrcn_tpu_torch.core.vocab import (  # noqa: F401
     caption_to_line,
     detokenize_batch,
 )
-from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
+from lrcn_tpu_torch.data.feature_store import (
+    FeatureStore,
+    device_table,
+    l1_normalize,
+)
 from lrcn_tpu_torch.decode.beam import rows_search, search
 from lrcn_tpu_torch.decode.sample import best_of_n_search
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder
@@ -74,7 +78,7 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
 
     Spans (``utils/profiling.py:span``): ``lrcn.generate`` around the
     call; inside it ``lrcn.generate.table`` (the resident table's
-    ``store.table()``, L1 normalization, cast and upload),
+    ``device_table``: L1 normalization, upload and cast),
     ``lrcn.generate.enqueue`` (a group's row index or gather and its
     search call), ``lrcn.generate.fetch`` (its tokens to the host) and
     ``lrcn.generate.detokenize``.
@@ -97,10 +101,8 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
         table = None
         if resident_store and len(store):
             with span("lrcn.generate.table"):
-                host = np.asarray(store.table(), np.float32)
-                if normalize:
-                    host = l1_normalize(host)
-                table = torch.from_numpy(host).to(feat_dtype).to(device)
+                table = device_table(store, device, feat_dtype,
+                                     normalize=normalize)
 
         lines: list[str] = []
         # (device tokens, n_real)
@@ -126,7 +128,7 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
                                             beam_width=beam_width,
                                             max_words=max_words)
                 else:
-                    feats = store.gather(chunk).astype(np.float32)
+                    feats = store.gather(chunk)
                     if normalize:
                         feats = l1_normalize(feats)
                     feats = torch.from_numpy(feats).to(device)

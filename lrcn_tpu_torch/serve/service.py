@@ -59,7 +59,11 @@ import torch
 from lrcn_tpu_torch import as_device
 from lrcn_tpu_torch.config import LRCNConfig
 from lrcn_tpu_torch.core.vocab import Vocab
-from lrcn_tpu_torch.data.feature_store import FeatureStore, l1_normalize
+from lrcn_tpu_torch.data.feature_store import (
+    FeatureStore,
+    device_table,
+    l1_normalize,
+)
 from lrcn_tpu_torch.data.images import CROP, images_to_fc7
 from lrcn_tpu_torch.decode.beam import rows_search, search
 from lrcn_tpu_torch.decode.writer import detokenize_batch
@@ -139,11 +143,9 @@ class CaptionService:
         # halves the table in bf16.
         self._table = self._rows_batcher = None
         if store is not None and len(store):
-            table = np.asarray(store.table(), np.float32)
-            if not store.normalized:
-                table = l1_normalize(table)
-            self._table = torch.from_numpy(table).to(
-                decoder.compute_dtype).to(self.device)
+            self._table = device_table(store, self.device,
+                                       decoder.compute_dtype,
+                                       normalize=not store.normalized)
             if self._shards is not None:
                 self._tables = self._shards.replicate(self._table)
             self._rows_batcher = DynamicBatcher(

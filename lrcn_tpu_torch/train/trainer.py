@@ -66,7 +66,7 @@ from lrcn_tpu_torch import as_device
 from lrcn_tpu_torch.config import LRCNConfig
 from lrcn_tpu_torch.core.vocab import Vocab
 from lrcn_tpu_torch.data.batcher import Batch, chunk_same_shape, iterate_epoch
-from lrcn_tpu_torch.data.feature_store import FeatureStore
+from lrcn_tpu_torch.data.feature_store import FeatureStore, device_table
 from lrcn_tpu_torch.models import lrcn
 from lrcn_tpu_torch.models.lrcn import LRCNParams
 from lrcn_tpu_torch.train.checkpoint import (OPT_KEYS, compute_dtype_of,
@@ -381,8 +381,7 @@ class Trainer:
         serve a stale one when CPython reuses the address)."""
         cached = self._table_cache
         if cached is None or cached[0]() is not store:
-            table = torch.from_numpy(
-                np.asarray(store.table(), np.float32)).to(self.device)
+            table = device_table(store, self.device, torch.float32)
             self._table_cache = (weakref.ref(store), table)
         return self._table_cache[1]
 
