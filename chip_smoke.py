@@ -10,6 +10,7 @@
     python3 chip_smoke.py --graphs     # instead: phases 1, 2, 17 and 18
                                        # alone
     python3 chip_smoke.py --examples   # instead: phases 1, 2 and 19 alone
+    python3 chip_smoke.py --moe        # instead: phases 1, 2 and 20 alone
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero.  Every search, encoder batch, sampling search, training
@@ -217,7 +218,19 @@ and their timings warm each signature up twice:
    bf16; 13 conv launches an encoder batch at ``conv3x3_route``'s
    routes).  Phases 3, 4 and 7 hold the kernels at these paths' shapes
    (``EXAMPLE_LSTM`` at bf16, ``EXAMPLE_LSTM_F32`` at f32,
-   ``EXAMPLE_VOCABS``, the runbook's convs).
+   ``EXAMPLE_VOCABS``, the runbook's convs);
+20. the MoE text decoder's search (``models/moe_text.py``) at the
+   Kimi-VL-A3B cell's geometry: the top-k kernel at its shape (3,072
+   hypotheses over 163,840 words, k = 3) on its default route, its
+   values and indices equal to ``topk_logsumexp_reference``'s and its
+   log-sum-exp within ``LSE_ATOL``; the device time of both routes (in
+   turns), the plain version's and ``torch.topk`` with
+   ``torch.logsumexp``'s; then, with the launch counters zeroed, one
+   replay of ``rows_search`` over 1,024 rows (1,000 real, the last
+   repeated), beam 3, 30 words, by a decoder at the published widths and
+   vocabulary cut to ``MOE_LAYERS`` layers (one dense, one expert layer):
+   31 top-k launches a search, all on that route, and no LSTM or conv
+   launch.
 
 The line before the last is one JSON object describing each kernel, with
 the time of the kernel, its plain version and a library call at the
@@ -459,6 +472,13 @@ RUNBOOK_WIDTH, RUNBOOK_FC, RUNBOOK_BATCH = 8, 24, 8
 RUNBOOK_IMAGES = 32
 RUNBOOK_WORDS = ["man", "dog", "park", "red", "ball", "runs", "sits", "big",
                  "small", "tree"]
+
+# the MoE text decoder's search (phase 20): the Kimi-VL-A3B cell's geometry
+# (``cli.decode_geometry(1000)``: one search of 256 x 4 rows, 1,000 real;
+# beam 3, 30 words, 16 prompt ids) at the published widths and
+# vocabulary, cut to one dense and one expert layer to fit the smoke
+MOE_IMAGES, MOE_ROWS, MOE_BEAM, MOE_WORDS = 1000, 1024, 3, 30
+MOE_LAYERS, MOE_PROMPT = 2, 16
 
 # the H100 SXM's published peaks (dense), for bound_ms
 PEAK_BYTES_S = 3.35e12
@@ -973,6 +993,101 @@ def phase_topk(rng) -> dict:
             "host_impl_us": t["host_impl"], "host_c_us": t["host_c"],
             "timing": "device time from torch.profiler (ms, v1_ms, "
                       "plain_ms, library_ms); wall_ms by CUDA events"}
+
+
+def phase_moe(smi: str) -> dict:
+    """Phase 20: the top-k kernel at the MoE search's shape, then that
+    search's launches (module docstring)."""
+    from lrcn_tpu_torch.config import MoETextConfig
+    from lrcn_tpu_torch.decode.beam import rows_search
+    from lrcn_tpu_torch.models.moe_text import MoETextDecoder, init_params
+    from lrcn_tpu_torch.ops.kernels import (fused_conv3x3_relu,
+                                            fused_lstm_step, topk_logsumexp,
+                                            topk_logsumexp_reference)
+    from lrcn_tpu_torch.ops.kernels.topk_lse import MAX_K, topk_lse_route
+
+    cfg = MoETextConfig(num_hidden_layers=MOE_LAYERS,
+                        prompt_ids=tuple(range(3, 3 + MOE_PROMPT)))
+    rows, v, k = MOE_ROWS * MOE_BEAM, cfg.vocab_size, MOE_BEAM
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    x = torch.randn((rows, v), generator=gen, device="cuda") * 3
+    default = topk_lse_route(x, k)
+    other = "warp" if k <= MAX_K["warp"] else "rounds"
+    want = topk_logsumexp_reference(x, k)
+    before = dict(topk_logsumexp.launches_by_route)
+    got = topk_logsumexp(x, k)
+    delta = route_delta(topk_logsumexp, before)
+    check(delta == {default: 1}, f"[20 moe] top-k routes {delta}, want "
+                                 f"{default}")
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"[20 moe] top-k ({rows}, {v}) k={k}: values/indices differ")
+    err = lse_err(got[2], want[2])
+    print(f"[20 moe] top-k ({rows}, {v}) k={k}, route {default}: vals/idx "
+          f"exact, lse |err| {err:.3g} (tolerance {LSE_ATOL})")
+    check(err <= LSE_ATOL, f"[20 moe] top-k lse |err| {err}")
+    del want, got
+    dev = {default: [], other: []}
+    for route in (other, default, default, other):
+        dev[route].append(device_ms(lambda: topk_logsumexp(x, k, route=route),
+                                    calls=10))
+    dev = {route: statistics.mean(ms) for route, ms in dev.items()}
+    wall = median_ms(lambda: topk_logsumexp(x, k), reps=7, inner=3)
+    plain = device_ms(lambda: topk_logsumexp_reference(x, k), calls=3,
+                      one_kernel=False)
+    lib = device_ms(lambda: (torch.topk(x, k), torch.logsumexp(x, -1)),
+                    calls=10, one_kernel=False)
+    bnd, by = topk_bound(rows, v, k)
+    print(f"[20 moe] top-k ({rows}, {v}) k={k}: device {default} "
+          f"{dev[default]:.4f} ms, {other} {dev[other]:.4f} ms (in turns); "
+          f"wall per call {wall:.4f} ms; plain {plain:.4f} ms; torch.topk + "
+          f"torch.logsumexp {lib:.4f} ms; bound {bnd:.4f} ms ({by}), "
+          f"{bnd / dev[default]:.1%} of it; {smi}")
+    del x
+
+    t0 = time.perf_counter()
+    decoder = MoETextDecoder(cfg, init_params(cfg, gen), torch.bfloat16)
+    feats = torch.rand((MOE_IMAGES, cfg.cnn_feature_dim), generator=gen,
+                       device="cuda")
+    table = (feats / feats.sum(1, keepdim=True)).to(torch.bfloat16)
+    idx = torch.arange(MOE_ROWS, device="cuda").clamp(max=MOE_IMAGES - 1)
+    search = lambda: rows_search(decoder, table, idx, beam_width=MOE_BEAM,
+                                 max_words=MOE_WORDS)
+    eager = search()                # the signature's eager call
+    search()                        # its capture
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    kernels = (fused_conv3x3_relu, fused_lstm_step, topk_logsumexp)
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    tokens, _ = search()
+    torch.cuda.synchronize()
+    replay = time.perf_counter() - t0
+    launches = read_counts(*kernels)
+    by_route = {r: n for r, n in topk_logsumexp.launches_by_route.items()
+                if n}
+    want = {"fused_conv3x3_relu": 0, "fused_lstm_step": 0,
+            "topk_logsumexp": MOE_WORDS + 1}
+    check(launches == want and by_route == {default: MOE_WORDS + 1},
+          f"[20 moe] launches of one replayed search {launches}, top-k by "
+          f"route {by_route}; want {want}, all {default}")
+    check(torch.equal(tokens, eager[0]), "[20 moe] the replayed search's "
+                                         "tokens differ from the eager one's")
+    print(f"[20 moe] rows_search, {MOE_ROWS} rows x beam {MOE_BEAM}, "
+          f"{MOE_WORDS} words, {MOE_LAYERS} layers at the published widths "
+          f"and V={v}: one replay {replay:.3f} s (decoder, eager call and "
+          f"capture {built:.1f} s), tokens equal to the eager call's; "
+          f"launches {launches}, top-k by route {by_route}")
+    del decoder, eager, tokens
+    torch.cuda.empty_cache()
+    return {"name": "topk_logsumexp", "shape": f"({rows}, {v}) k={k}",
+            "kernel_route": default, "max_abs_err": err,
+            "ms": dev[default], "v1_ms": dev[other], "wall_ms": wall,
+            "plain_ms": plain, "library_ms": lib,
+            "library": "torch.topk + torch.logsumexp", "bound_ms": bnd,
+            "bound_by": by, "launches": launches["topk_logsumexp"],
+            "launches_by_route": by_route,
+            "launches_by_path": {"moe search (phase 20)": launches}}
 
 
 def check_captions(tok_k, sc_k, tok_p, sc_p, vocab, label: str
@@ -5683,6 +5798,11 @@ def main() -> None:
         print(f"[time] seconds by phase: 19 {time.perf_counter() - t0:.1f}")
         shutil.rmtree(WORK, ignore_errors=True)
         return
+    if sys.argv[1:] == ["--moe"]:
+        t0 = time.perf_counter()
+        print(json.dumps({"kernels": [phase_moe(smi)]}))
+        print(f"[time] seconds by phase: 20 {time.perf_counter() - t0:.1f}")
+        return
     if sys.argv[1:] == ["--mesh"]:
         tree = random_tree(rng)
         shutil.rmtree(WORK, ignore_errors=True)
@@ -5754,6 +5874,13 @@ def main() -> None:
     lap("18")
     by_path.update(phase_examples(smi))
     lap("19")
+    moe = phase_moe(smi)
+    by_path["moe search (phase 20)"] = moe["launches_by_path"][
+        "moe search (phase 20)"]
+    kernels[1]["moe"] = {key: moe[key] for key in (
+        "shape", "kernel_route", "max_abs_err", "ms", "v1_ms", "wall_ms",
+        "plain_ms", "library_ms", "library", "bound_ms", "bound_by")}
+    lap("20")
     print("[time] seconds by phase: " + ", ".join(
         f"{label} {t - laps[i][1]:.1f}"
         for i, (label, t) in enumerate(laps[1:])))

@@ -22,6 +22,14 @@ Reference semantics kept exactly, as in the JAX package:
   parents, EOS filler and a frozen score;
 - the winning path is read back through the parent pointers.
 
+The beam search also runs the MoE text decoder (``models/moe_text.py``),
+chosen once a search by the decoder's type: a step object holds what a
+hypothesis carries and reorders it by parent after each selection, the
+LSTM state (``_LSTMSteps``) or, for the MoE decoder (``_MoESteps``), a
+latent cache of the decoded positions beside the image-and-prompt prefix
+that is prefilled once a row and shared by its K hypotheses.  The MoE
+decoder's greedy search is this beam search at K = 1.
+
 Rows are independent, so the grouped variants decode all G·B rows of a
 (G, B, D) group in one search.
 
@@ -42,8 +50,9 @@ import functools
 import torch
 
 from lrcn_tpu_torch.core.vocab import BOS_ID, EOS_ID
-from lrcn_tpu_torch.models import lrcn
+from lrcn_tpu_torch.models import lrcn, moe_text
 from lrcn_tpu_torch.models.lrcn import LRCNDecoder, LSTMState
+from lrcn_tpu_torch.models.moe_text import MoETextDecoder
 from lrcn_tpu_torch.ops.kernels import (topk_logsumexp,
                                         topk_logsumexp_reference)
 from lrcn_tpu_torch.utils import graphs
@@ -61,6 +70,58 @@ def _top_k_stable(x: torch.Tensor, k: int
 def _gather_beams(x: torch.Tensor, parent: torch.Tensor) -> torch.Tensor:
     """Reorder the beam axis: x (B, K, D) indexed by parent (B, K)."""
     return torch.gather(x, 1, parent[:, :, None].expand(-1, -1, x.shape[-1]))
+
+
+class _LSTMSteps:
+    """The LRCN decoder's steps for a beam search of K hypotheses a row:
+    the image's projection, once, and the LSTM state, reordered by
+    parent."""
+
+    def __init__(self, decoder: LRCNDecoder, feats: torch.Tensor, k: int,
+                 use_kernels: bool):
+        b_dim = feats.shape[0]
+        self.decoder, self.use_kernels = decoder, use_kernels
+        cnn_proj = lrcn.cnn_projection(decoder, feats)            # (B, F)
+        # each row's projection k times (repeat_interleave without its sizes)
+        self.cnn_flat = cnn_proj[:, None].expand(-1, k, -1).reshape(
+            b_dim * k, -1)
+        self.state = lrcn.init_state(decoder, b_dim * k, feats.device)
+        self.shape = (b_dim, k)
+
+    def __call__(self, last: torch.Tensor, t: int) -> torch.Tensor:
+        self.state, logits = lrcn.decode_step(
+            self.decoder, self.state, last, self.cnn_flat, self.use_kernels)
+        return logits
+
+    def reorder(self, parent: torch.Tensor, t: int) -> None:
+        b_dim, k = self.shape
+        self.state = LSTMState(*(
+            _gather_beams(s.view(b_dim, k, -1), parent).view(b_dim * k, -1)
+            for s in self.state))
+
+
+class _MoESteps:
+    """The MoE text decoder's steps: the image-and-prompt prefix prefilled
+    once a row and shared by its K hypotheses, and a latent cache of the
+    decoded positions a hypothesis, reordered by parent (the counterpart
+    of the LSTM state's reorder)."""
+
+    def __init__(self, decoder: MoETextDecoder, feats: torch.Tensor, k: int,
+                 max_words: int):
+        cfg = decoder.cfg
+        self.decoder = decoder
+        self.prefix = moe_text.prefill(decoder, feats)
+        self.cache = torch.zeros(
+            (cfg.num_hidden_layers, feats.shape[0] * k, max_words + 1,
+             cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+            dtype=decoder.compute_dtype, device=feats.device)
+
+    def __call__(self, last: torch.Tensor, t: int) -> torch.Tensor:
+        return moe_text.decode_step(self.decoder, self.prefix, self.cache, t,
+                                    last)
+
+    def reorder(self, parent: torch.Tensor, t: int) -> None:
+        moe_text.reorder_cache(self.cache, parent, t)
 
 
 @torch.inference_mode()
@@ -102,25 +163,22 @@ def beam_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
     b_dim, k = feats.shape[0], beam_width
     device = feats.device
     topk = topk_logsumexp if use_kernels else topk_logsumexp_reference
-
-    cnn_proj = lrcn.cnn_projection(decoder, feats)                # (B, F)
-    # each row's projection k times (repeat_interleave without its sizes)
-    cnn_flat = cnn_proj[:, None].expand(-1, k, -1).reshape(b_dim * k, -1)
+    step = (_MoESteps(decoder, feats, k, max_words)
+            if isinstance(decoder, MoETextDecoder)
+            else _LSTMSteps(decoder, feats, k, use_kernels))
 
     # all hypotheses are identical at step 0: only beam 0 may expand
     scores = torch.full((b_dim, k), NEG_INF, dtype=torch.float32,
                         device=device)
     scores[:, 0] = 0.0
     last = torch.full((b_dim, k), BOS_ID, dtype=torch.int64, device=device)
-    state = lrcn.init_state(decoder, b_dim * k, device)
     done = torch.zeros((b_dim,), dtype=torch.bool, device=device)
     identity = torch.arange(k, device=device).expand(b_dim, k)
     eos = torch.full((b_dim, k), EOS_ID, dtype=torch.int64, device=device)
 
     parents, words = [], []
-    for _ in range(max_words + 1):
-        state, logits = lrcn.decode_step(decoder, state, last.reshape(-1),
-                                         cnn_flat, use_kernels)
+    for t in range(max_words + 1):
+        logits = step(last.reshape(-1), t)
         vals, step_words, lse = topk(logits, k)                  # (B*K, K)
         step_scores = vals - lse[:, None]
         cand = scores[:, :, None] + step_scores.view(b_dim, k, k)
@@ -128,9 +186,7 @@ def beam_search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
         parent = torch.div(sel, k, rounding_mode="floor")
         word = torch.gather(step_words.view(b_dim, k * k).long(), 1, sel)
 
-        state = LSTMState(*(
-            _gather_beams(s.view(b_dim, k, -1), parent).view(b_dim * k, -1)
-            for s in state))
+        step.reorder(parent, t)
 
         # finished rows: identity parents, EOS filler, frozen scores; the
         # state and `last` keep evolving, and all they influence is masked
@@ -204,8 +260,9 @@ def search(decoder: LRCNDecoder, feats: torch.Tensor, *, beam_width: int,
 def search_fn(decoder: LRCNDecoder, feats: torch.Tensor, *,
               beam_width: int, max_words: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The eager body of :func:`search`."""
-    if beam_width == 1:
+    """The eager body of :func:`search`; the MoE text decoder takes the
+    beam search at every width, greedy being its width 1."""
+    if beam_width == 1 and not isinstance(decoder, MoETextDecoder):
         return greedy_search_fn(decoder, feats, max_words=max_words)
     return beam_search_fn(decoder, feats, beam_width=beam_width,
                           max_words=max_words)

@@ -12,7 +12,9 @@ trailing `` .`` (lrcn.jl:634-640).
 in groups of ``scan_depth`` batches of ``batch_size`` rows, each group one
 search on the device, or, with ``sample_n > 0``, the paper's best-of-N
 sampling (``decode/sample.py``), one batch of ``batch_size`` images a
-search.
+search.  The decoder is the LRCN decoder or the MoE text decoder
+(``models/moe_text.py``); the search picks its steps by the decoder's
+type, once a search (``decode/beam.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +91,8 @@ def generate_captions(decoder: LRCNDecoder, vocab: Vocab,
             raise ValueError(f"decoder is on {decoder.device}, not {device}")
         if normalize is None:
             normalize = not store.normalized
+        if sample_n > 0 and not isinstance(decoder, LRCNDecoder):
+            raise ValueError("best-of-N sampling runs the LRCN decoder only")
         if sample_n > 0:
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)

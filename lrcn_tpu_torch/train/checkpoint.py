@@ -26,7 +26,9 @@ resumes bit-exactly in the package that wrote it.
 
 A joint (CNN + decoder) checkpoint keeps its parameters under ``cnn/``
 and ``decoder/``; the reader builds the decoder from the second and the
-VGG encoder from the first.
+VGG encoder from the first.  A checkpoint whose ``config.json`` has
+``"decoder": "moe_text"`` holds the MoE text decoder
+(``models/moe_text.py``, a ``MoETextConfig``), for generation only.
 """
 
 from __future__ import annotations
@@ -40,10 +42,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from lrcn_tpu_torch.config import LRCNConfig
+from lrcn_tpu_torch.config import LRCNConfig, MoETextConfig
 from lrcn_tpu_torch.core.vocab import Vocab
 from lrcn_tpu_torch.models.lrcn import (PARAM_KEYS, flat_tree,
                                         params_from_numpy)
+from lrcn_tpu_torch.models.moe_text import MoETextDecoder
 from lrcn_tpu_torch.models.vgg import vgg_params_from_numpy
 
 # optax's flattening order of a parameter dict: sorted keys
@@ -188,6 +191,8 @@ def load_checkpoint(path: str, device,
     vocab = Vocab.load(os.path.join(path, "vocab.json"))
     with open(os.path.join(path, "config.json")) as f:
         meta = json.load(f)
+    if meta.get("decoder") == MoETextConfig.decoder:
+        return _load_moe_text(params, vocab, meta, device, compute_dtype)
     field_names = {f.name for f in dataclasses.fields(LRCNConfig)}
     cfg = LRCNConfig(**{k: v for k, v in meta.items() if k in field_names})
     if compute_dtype is None:
@@ -211,6 +216,25 @@ def load_checkpoint(path: str, device,
             "vocab": vocab, "cfg": cfg, "step": meta.get("step", 0),
             "epoch": meta.get("epoch", 0), "opt_leaves": opt_leaves,
             "position": meta.get("position")}
+
+
+def _load_moe_text(params: dict[str, np.ndarray], vocab: Vocab, meta: dict,
+                   device, compute_dtype: torch.dtype | None
+                   ) -> dict[str, Any]:
+    """A checkpoint of the MoE text decoder (``config.json`` names it by
+    ``decoder``; ``save_checkpoint`` writes one from its flat parameters
+    and a ``MoETextConfig``): inference only."""
+    cfg = MoETextConfig.from_dict(meta)
+    if compute_dtype is None:
+        compute_dtype = _DTYPES[cfg.compute_dtype]
+    decoder = MoETextDecoder(
+        cfg, lambda key: torch.from_numpy(np.asarray(params[key],
+                                                     np.float32)),
+        compute_dtype).to(torch.device(device))
+    return {"decoder": decoder, "vgg": None, "average_image": None,
+            "params": params, "vocab": vocab, "cfg": cfg,
+            "step": meta.get("step", 0), "epoch": meta.get("epoch", 0),
+            "opt_leaves": None, "position": meta.get("position")}
 
 
 # --- step-interval resume positions ---
