@@ -11,6 +11,7 @@
                                        # alone
     python3 chip_smoke.py --examples   # instead: phases 1, 2 and 19 alone
     python3 chip_smoke.py --moe        # instead: phases 1, 2 and 20 alone
+    python3 chip_smoke.py --lstm       # instead: phases 1, 2 and 3 alone
 
 Phases, each printing its own lines; any failure raises and the script
 exits nonzero.  Every search, encoder batch, sampling search, training
@@ -29,7 +30,11 @@ and their timings warm each signature up twice:
    bf16 at 3072, 12288 and 25600 rows (a 4-group burst, the 16x256 decode,
    best-of-100 sampling of 256 images), plus a ragged shape, with median
    CUDA-event times of the kernel, the plain version and ``torch.mm`` on
-   a pre-concatenated [x, h] (the GEMM alone);
+   a pre-concatenated [x, h] (the GEMM alone), and the kernel's device
+   time (``queued_ms``: at 768 rows a wrapper call's host time is longer
+   than the wgmma route's kernel); untimed, the row counts
+   that leave the wgmma route's last row tile part-filled or alone
+   (``PARTIAL_ROWS``, ``LONE_TILE_ROWS``) and the examples' widths;
    each case must take its route (bf16 aligned: wgmma, ragged: wmma, f32:
    fma), read from the per-route launch counters; the host time of one
    launch of the wgmma route (TMA descriptors encoded) and the wmma route,
@@ -288,6 +293,10 @@ LSTM_ATOL = 1e-4
 #  wgmma route's last 128-row block part-filled, and phase 16's shard
 #  (3 x decode_batch / 2 = 384 at 2 x 128 images)
 PARTIAL_ROWS = (3, 192, 576, 1600, 384)
+#  rows whose last 128-row tile holds one row: beside a full tile in one
+#  cluster (129), or alone in its cluster, whose second tile lies past the
+#  rows (12,289: 97 row tiles), checked and not timed
+LONE_TILE_ROWS = (129, 12289)
 #  topk: vals and idx exact; lse sums 8800 exps in another order
 LSE_ATOL = 2e-5
 # the top-k cases of phase 4 that are timed: the main path's shapes (beam
@@ -594,6 +603,27 @@ def device_ms(fn, calls: int = 30, one_kernel: bool = True) -> float:
     return sum(us) / calls / 1e3
 
 
+def queued_ms(fn, cycles: int, calls: int = 30) -> float:
+    """Device time per call of ``fn`` with its kernels back to back, by
+    CUDA events and no profiler: a spin of ``cycles`` (``stall_cycles``)
+    holds the stream while the host queues all ``calls``, so the host's
+    time per call, which at 768 rows exceeds the LSTM kernel's, is not in
+    it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    check(queued, f"the spin ended before {calls} calls were queued")
+    return start.elapsed_time(end) / calls
+
+
 def random_tree(rng: np.random.Generator) -> dict[str, np.ndarray]:
     """Decoder parameters as the JAX package initializes them (xavier
     uniform, forget-gate bias 1), with '/'-joined checkpoint keys."""
@@ -680,7 +710,8 @@ def phase_lstm(tree, rng) -> dict:
     from lrcn_tpu_torch.ops.kernels import (build, fused_lstm_step,
                                             lstm_step_reference)
     from lrcn_tpu_torch.ops.kernels.lstm_step import (ROUTES, lstm_step_cuda,
-                                                      lstm_step_route)
+                                                      lstm_step_route,
+                                                      wgmma_grid)
 
     rows = DECODE_BATCH * BEAM
     cases = [(f"layer{n} {dtype}".replace("torch.", ""),
@@ -706,7 +737,7 @@ def phase_lstm(tree, rng) -> dict:
     # (384), checked and not timed
     cases += [(f"layer{n} bfloat16 {r} rows untimed", tree[f"lstm{n}/w"],
                tree[f"lstm{n}/b"], r, torch.bfloat16, big)
-              for r in PARTIAL_ROWS for n in (1, 2)]
+              for r in PARTIAL_ROWS + LONE_TILE_ROWS for n in (1, 2)]
     # the examples' and the runbook's widths (phase 19), each layer at its
     # paths' row counts: gate tiles far narrower than the wgmma route's
     # 4 x 64 columns; checked and not timed
@@ -724,6 +755,7 @@ def phase_lstm(tree, rng) -> dict:
                            f"{str(dtype)[6:]} {r} rows untimed", w_small,
                            b_small, r, dtype, small) for r in rows_list]
     worst, times = 0.0, {}
+    spin = stall_cycles(20.0)
     for label, w_np, b_np, b_dim, dtype, gen in cases:
         h_dim = b_np.shape[0] // 4
         x_dim = w_np.shape[0] - h_dim
@@ -755,6 +787,9 @@ def phase_lstm(tree, rng) -> dict:
             continue
         reps = dict(reps=7, inner=3) if b_dim > rows else {}
         ms = median_ms(lambda: fused_lstm_step(w, b, h, c, x), **reps)
+        # the kernel alone: at 768 rows a wrapper call's host time exceeds
+        # the wgmma route's kernel, so the wall time is the host's
+        dev = queued_ms(lambda: fused_lstm_step(w, b, h, c, x), spin)
         plain = median_ms(lambda: lstm_step_reference(w, b, h, c, x), **reps)
         # the library yardstick: the GEMM alone on a pre-concatenated [x, h]
         xh = torch.cat([x, h], 1).to(dtype)
@@ -764,28 +799,30 @@ def phase_lstm(tree, rng) -> dict:
         else:
             lib = median_ms(lambda: torch.mm(xh, w), **reps)
         bnd, by = lstm_bound(b_dim, x_dim, h_dim, w.element_size())
-        times[label] = (ms, plain, lib, bnd, by)
+        times[label] = (ms, plain, lib, bnd, by, dev)
         print(f"[3 lstm_step] {label}: rows={b_dim} X={x_dim} H={h_dim} "
               f"route {want} max|err|={err:.3g} (tol {LSTM_ATOL}) kernel "
-              f"{ms:.4f} ms plain {plain:.4f} ms torch.mm {lib:.4f} ms "
-              f"bound {bnd:.4f} ms ({by}); "
-              f"{2 * b_dim * (x_dim + h_dim) * 4 * h_dim / ms / 1e9:.1f} "
-              f"TFLOP/s")
+              f"{ms:.4f} ms (device {dev:.4f} ms) plain {plain:.4f} ms "
+              f"torch.mm {lib:.4f} ms bound {bnd:.4f} ms ({by}); "
+              f"{2 * b_dim * (x_dim + h_dim) * 4 * h_dim / dev / 1e9:.1f} "
+              f"TFLOP/s on the device")
         del w, h, c, x, xh, h_k, c_k, h_p, c_p
-    # the host cost of a launch: the wgmma route encodes four TMA maps
+    # the host cost of a launch: the wgmma route encodes its TMA maps
     lib_c = build.load()
     w = torch.from_numpy(tree["lstm1/w"]).cuda().to(torch.bfloat16)
     b = torch.from_numpy(tree["lstm1/b"]).cuda()
     x, h, c, h_o, c_o = (torch.zeros((rows, HIDDEN[0]), device="cuda")
                          for _ in range(5))
     stream = torch.cuda.current_stream().cuda_stream
+    grid = wgmma_grid(rows, HIDDEN[0], build.sm_count(x.device))
     host = {route: host_us(lambda: build.check(lib_c.lrcn_lstm_step(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
-        h_o.data_ptr(), c_o.data_ptr(), rows, HIDDEN[0], HIDDEN[0],
-        ROUTES[route], stream), route)) for route in ("wgmma", "wmma")}
+        h_o.data_ptr(), c_o.data_ptr(), rows, HIDDEN[0], HIDDEN[0], grid,
+        ROUTES[route], stream), route))
+        for route in ("wgmma", "wmma")}
     print(f"[3 lstm_step] host time per C launch at {rows} rows: wgmma "
-          f"{host['wgmma']:.2f} us (4 TMA maps encoded), wmma "
-          f"{host['wmma']:.2f} us")
+          f"{host['wgmma']:.2f} us (TMA maps encoded, {grid} blocks in "
+          f"clusters of 2), wmma {host['wmma']:.2f} us")
     # a wrapper call through the op (the dispatcher, then the CUDA
     # implementation) against the CUDA implementation called directly
     op_us = host_us(lambda: fused_lstm_step(w, b, h, c, x))
@@ -793,19 +830,21 @@ def phase_lstm(tree, rng) -> dict:
     print(f"[3 lstm_step] host time per wrapper call at {rows} rows "
           f"(wgmma): through lrcn::lstm_step {op_us:.2f} us, the CUDA "
           f"implementation called directly {impl_us:.2f} us")
-    ms, plain, lib, bnd, by = times["layer1 bfloat16"]
-    s_ms, s_plain, s_lib, s_bnd, _ = times["layer1 bfloat16 sampling"]
+    ms, plain, lib, bnd, by, dev = times["layer1 bfloat16"]
+    s_ms, s_plain, s_lib, s_bnd, _, s_dev = times["layer1 bfloat16 sampling"]
     return {"name": "fused_lstm_step", "route": "cuda",
             "source": "lrcn_tpu_torch/csrc/lstm_step.cu",
             "replaces": "lrcn_tpu/ops/pallas/lstm_step.py:63",
             "shape": f"rows={rows} X=H={HIDDEN[0]} bf16",
             "kernel_route": "wgmma", "max_abs_err": worst, "ms": ms,
+            "device_ms": dev,
             "plain_ms": plain, "library_ms": lib, "library": "torch.mm",
             "bound_ms": bnd, "bound_by": by,
             "host_us": host["wgmma"], "op": "lrcn::lstm_step",
             "host_op_us": op_us, "host_impl_us": impl_us,
             "sampling_shape": f"rows={SAMPLE_IMAGES * SAMPLE_N}",
-            "sampling_ms": s_ms, "sampling_plain_ms": s_plain,
+            "sampling_ms": s_ms, "sampling_device_ms": s_dev,
+            "sampling_plain_ms": s_plain,
             "sampling_library_ms": s_lib, "sampling_bound_ms": s_bnd}
 
 
@@ -5802,6 +5841,11 @@ def main() -> None:
         t0 = time.perf_counter()
         print(json.dumps({"kernels": [phase_moe(smi)]}))
         print(f"[time] seconds by phase: 20 {time.perf_counter() - t0:.1f}")
+        return
+    if sys.argv[1:] == ["--lstm"]:
+        t0 = time.perf_counter()
+        print(json.dumps({"kernels": [phase_lstm(random_tree(rng), rng)]}))
+        print(f"[time] seconds by phase: 3 {time.perf_counter() - t0:.1f}")
         return
     if sys.argv[1:] == ["--mesh"]:
         tree = random_tree(rng)

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
-// package (conv3x3.cu, lstm_step.cu): mbarriers, TMA tiled loads, the
-// wgmma shared-memory descriptor and the wgmma instructions they use.
+// package (conv3x3.cu, lstm_step.cu): mbarriers, thread block clusters,
+// TMA tiled loads (multicast too), the wgmma shared-memory descriptor and
+// the wgmma instructions they use.
 //
 // The pipeline they make: one producer warp keeps a ring of shared-memory
 // stages full with TMA loads, each stage guarded by a "full" mbarrier (the
-// TMA's byte count completes it) and an "empty" mbarrier (every consumer
-// thread arrives once it has read the stage); one or two consumer
-// warpgroups run wgmma on the stages as they land, with f32 accumulators
-// in registers.
+// TMA's byte count completes it) and an "empty" mbarrier (the consumers
+// arrive once they have read the stage: in a cluster whose blocks
+// multicast into each other's stages, on every block's barrier); one or
+// two consumer warpgroups run wgmma on the stages as they land, with f32
+// accumulators in registers.
 //
 // TMA descriptors are encoded on the host with libcuda's
 // cuTensorMapEncodeTiled, looked up at run time so that the library needs
@@ -84,15 +86,49 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// Make this thread's shared-memory writes visible to the async proxy
-// (wgmma reads through it).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+// ---- thread block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
 }
 
-// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
-__device__ __forceinline__ void named_barrier(uint32_t id, uint32_t count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+// Every thread of every block of the cluster: the barriers initialised
+// before it are seen by all of them, and no block leaves while another may
+// still write its shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One arrival on the mbarrier at `bar`'s offset in block `cta` of the
+// cluster (this block's own too).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// Hand registers back to the SM (dec) or take them (inc): every warp of a
+// warpgroup runs it, and the block's total must stay within its launch
+// allocation.  A warp-specialized kernel gives its loading warpgroup few
+// registers and its wgmma warpgroups many.
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- TMA tiled loads (global -> shared), completion on an mbarrier ----
@@ -104,6 +140,22 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// The same tile into the same offset of the shared memory of every block
+// of the cluster named in `mask`, each completing its own barrier at
+// `bar`'s offset.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -199,14 +251,19 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x 256, f32) += A (64 x 16, bf16, K-major, shared) x B (16 x 256,
-// bf16, MN-major, shared).
-__device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128], uint64_t a,
+// d (64 x 256, f32) += A (64 x 16, bf16, registers) x B (16 x 256, bf16,
+// MN-major, shared).  Thread (warp w, lane l) of the warpgroup holds A's
+// rows 16w + l/4 (a[0], a[2]) and 16w + l/4 + 8 (a[1], a[3]), columns
+// 2(l%4), +1 (a[0], a[1]) and 2(l%4) + 8, +9 (a[2], a[3]), two bf16 a
+// register, the lower column in the lower half.  The registers must not
+// change until the product has been waited for.
+__device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[128],
+                                                 const uint32_t* a,
                                                  uint64_t b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
+      "setp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
@@ -218,10 +275,10 @@ __device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128], uint64_t a,
       "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, %128, %129, p, 1, 1, 0, 1;\n"
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
       "}\n"
       : HOPPER_D32(0), HOPPER_D32(32), HOPPER_D32(64), HOPPER_D32(96)
-      : "l"(a), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 #undef HOPPER_D32

@@ -12,40 +12,48 @@
 // the JAX package, read in place as W[k, g*H + j]: no repacking and no
 // concatenation of x and h.
 //
-// What bounds it on this card: at the decode step's shape (768 rows,
-// X = H = 1000) one call is 2*768*2000*4000 = 12.3 GFLOP against 16 MB of
-// bf16 weights, about 770 FLOP per weight byte.  That is above the H100's
-// ~295 FLOP/byte ridge, so with tensor cores the kernel is compute-bound;
-// every row tile re-reads the weights, which fit the 50 MB L2.  Measured at
-// that shape in bf16, v1 (below) took 0.149 ms on an NVIDIA H100 80GB HBM3
-// with a 700 W power limit (PERF.md), about 83 TFLOP/s: issue-bound, far
-// from the tensor cores' peak.  The wgmma route (below) takes 0.057 ms
-// there and 0.70 ms at 12,288 rows (the 16x256 decode), 2.3x the bare
-// bf16 GEMM (PERF.md): its f32 x and h tiles, re-read by each of the 16
-// column blocks, double the operand bytes a bf16 GEMM reads.
+// What bounds it on this card: one call is 2 * B * (X + H) * 4H
+// operations against 16 MB of bf16 weights (X = H = 1000); from a few
+// hundred rows on that is above the H100's ~295 FLOP/byte ridge, so the
+// tensor cores set the floor (0.199 ms at 12,288 rows).  What kept the
+// kernel off that floor was feeding them: x and h arrive in f32 and every
+// 64-column tile reads them again, every 128-row tile reads W again, both
+// from L2 (3.1 GB a call at 12,288 rows when nothing is shared), and
+// these L2 reads, not the rounding to bf16, paced the mainloop (PERF.md).
+// At 768 rows (96 tiles, under one wave) each block has one tile: the
+// loads' latency and the epilogue are all there is to hide behind.
 //
 // Three routes, chosen by the wrapper (ops/kernels/lstm_step.py:
 // lstm_step_route) and passed in as an int:
 //
 // wgmma (bf16 weights, X and H multiples of 4, 16-byte aligned: the decode
-// step's shapes).  A warp-specialized Hopper GEMM with the cell update in
-// its epilogue.  Each block owns 128 rows x 64 hidden columns and computes
-// all four gates of them: its N = 256 tile is [f | i | o | g], four
-// 64-column strips W[k, q*H + j0 : q*H + j0 + 64] loaded by TMA (a strip
-// past H reads the next gate's columns, whose outputs are discarded; past
-// 4H TMA fills zeros).  Two W maps, rows [0, X) and [X, X+H), so the K
-// tail of x meets zero-filled weight rows, not h's.  One producer warp
-// keeps a ring of 6 stages (32 K steps each) full with TMA loads of the
-// f32 x or h tile and the bf16 W strips.  Two consumer warpgroups own 64
-// rows each: every stage, each rounds its rows of the f32 tile to bf16
-// into a swizzled shared-memory tile (no cast pass, no bf16 copy of x or
-// h in device memory), syncs on its own named barrier and runs
-// wgmma.m64n256k16 with both operands in shared memory, one stage of
-// products in flight.  Feeding A from registers instead made ptxas
-// serialize the wgmmas.  The accumulator layout puts column j of all four
-// gates in the same thread, so the epilogue (bias, sigmoid/tanh, c' and
-// h' in f32) reads its gates from registers with no shared-memory
-// staging.  One block an SM (214 KB of shared memory).
+// step's shapes).  A persistent, warp-specialized Hopper GEMM with the
+// cell update in its epilogue.  A tile is 128 rows x 64 hidden columns
+// of all four gates: its N = 256 columns are [f | i | o | g], four
+// 64-column strips W[k, q*H + j0 : q*H + j0 + 64] (a strip past H reads
+// the next gate's columns, whose outputs are discarded; past 4H TMA
+// fills zeros).  Two W maps, rows [0, X) and [X, X+H), so the K tail of
+// x meets zero-filled weight rows, not h's.  The grid is at most one
+// block an SM, in clusters of two that take the two row tiles of one
+// column tile together and walk the tiles column tile fastest
+// (wgmma_grid in the wrapper): the clusters in flight share their x and h
+// rows in L2, and each block loads two of the four W strips and
+// multicasts them to both, which halves W's L2 reads (2.3 GB a call).
+// Warp 0 keeps a ring of 7 stages (32 K steps each: the f32 x or h tile,
+// 16 KB, and the W strips, 16 KB) full with TMA loads, running into the
+// next tile while the consumers finish this one.  Two consumer
+// warpgroups own 64 rows each and feed A from registers: each thread
+// reads its fragments of the next stage from the f32 tile and rounds
+// them to bf16 while the current stage's wgmma.m64n256k16 run, so no
+// copy of x or h is written anywhere and nothing but waits, a few loads
+// and the wgmmas sits on their path.  The accumulator layout puts column
+// j of all four gates in one thread, so the epilogue (bias, sigmoid/tanh,
+// c' and h' in f32) reads its gates from registers and writes straight to
+// global memory.  What is left of the gap to the floor: the epilogue,
+// during which the tensor cores wait (about a fifth of the time at 12,288
+// rows), and the f32 x and h that every column tile still reads from L2.
+// Staging the epilogue's stores through shared memory for TMA cost the
+// ring two stages and made the consumers spill; it was slower.
 //
 // wmma (bf16, ragged or unaligned shapes) and fma (f32, parity runs): v1.
 // Each block owns the same (128 rows x 32 hidden columns) tile, fed through
@@ -372,28 +380,37 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
 
 namespace wg {
 
-constexpr int BM = 128;    // rows per block: 64 per consumer warpgroup
-constexpr int BNH = 64;    // hidden columns per block, per gate
-constexpr int BK = 32;     // reduction depth per stage: 128 f32 bytes
-constexpr int CONSUMERS = 256;                // two warpgroups
-constexpr int THREADS = CONSUMERS + 32;       // + the producer warp
-constexpr int A_BYTES = BM * BK * 4;          // the f32 x or h tile
-constexpr int STRIP_BYTES = BK * BNH * 2;     // one gate's bf16 W strip
-constexpr int STAGE = A_BYTES + 4 * STRIP_BYTES;
-constexpr int STAGES = 6;
-constexpr int A16_BYTES = BM * BK * 2;        // the bf16 copy of a tile
-constexpr int A16_BUFS = 2;
-// the ring and the bf16 copies, aligned to the 1024-byte swizzle atom,
-// and the ring's barriers
-constexpr int SMEM = STAGES * STAGE + A16_BUFS * A16_BYTES + 1024 +
-                     2 * STAGES * 8;
+constexpr int BM = 128;          // rows per tile: 64 per consumer warpgroup
+constexpr int BNH = 64;          // hidden columns per tile, per gate
+constexpr int BK = 32;           // reduction depth per stage: 128 f32 bytes
+constexpr int THREADS = 384;     // three warpgroups
+constexpr int CONSUMERS = 256;   // warpgroups 1 and 2
+constexpr int A_BYTES = BM * BK * 4;         // the f32 x or h tile
+constexpr int STRIP_BYTES = BK * BNH * 2;    // one gate's bf16 W strip
+constexpr int W_BYTES = 4 * STRIP_BYTES;
+constexpr int STAGE = A_BYTES + W_BYTES;     // 1024-byte aligned parts
+constexpr int STAGES = 7;
+constexpr int CL = 2;            // blocks a cluster: row tiles sharing W
+// the ring, aligned to the 1024-byte swizzle atom, and its barriers
+constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
 
 struct Maps {
-  CUtensorMap x, h, wx, wh;  // f32 x (B, X), h (B, H); W rows [0,X), [X,X+H)
+  // f32 x (B, X), h (B, H); W rows [0,X), [X,X+H)
+  CUtensorMap x, h, wx, wh;
 };
 
+// sigmoid and tanh from one __expf each, saturating without NaN at
+// +-inf.  Over every finite f32 against double, their largest absolute
+// errors are 1.2e-7 and 2.4e-7 (expf's sigmoid and tanhf: 0.9e-7 and
+// 1.1e-7); tanh's relative error near 0 is large, but the cell update
+// adds its absolute error.  They take 13% off the kernel at 12,288 rows
+// against expf and tanhf (PERF.md).
 __device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+__device__ __forceinline__ float tanh_(float v) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
@@ -401,153 +418,225 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// This thread's share of one stage: 8 consecutive k of one row of the f32
-// tile (128-byte rows, 128-byte swizzle: 16-byte chunk c of row r sits at
-// chunk c ^ (r % 8)), rounded to bf16 into the wgmma A tile (64-byte rows,
-// 64-byte swizzle: chunk c of row r at chunk c ^ (r / 2 % 4)).
-__device__ __forceinline__ void convert(const unsigned char* f32,
-                                        unsigned char* bf16, int chunk) {
-  const int r = chunk >> 2, c = chunk & 3;
-  const float4 lo = *reinterpret_cast<const float4*>(
-      f32 + r * 128 + (((2 * c) ^ (r & 7)) << 4));
-  const float4 hi = *reinterpret_cast<const float4*>(
-      f32 + r * 128 + (((2 * c + 1) ^ (r & 7)) << 4));
-  uint4 v;
-  v.x = pack_bf16(lo.x, lo.y);
-  v.y = pack_bf16(lo.z, lo.w);
-  v.z = pack_bf16(hi.x, hi.y);
-  v.w = pack_bf16(hi.z, hi.w);
-  *reinterpret_cast<uint4*>(bf16 + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)) = v;
+// The blocks of a cluster and the tiles they take.  A cluster of CL
+// blocks takes CL row tiles of one column tile (a group), block `rank`
+// the rank-th, and shares the column tile's W strips by multicast; a row
+// tile past B (the last group's, or a single tile's partner) loads zeros
+// and writes nothing.  Groups are numbered column tile fastest, so that
+// the clusters in flight share their rows of x and h and between them
+// read all of W; cluster k of K takes groups k, k + K, k + 2K, ..., and
+// each block runs n stages in each: nx of x, then n - nx of h.
+struct Tiles {
+  int col_tiles, count, nx, n, rank;
+  __device__ Tiles(int B, int X, int H)
+      : col_tiles((H + BNH - 1) / BNH),
+        count(((B + BM - 1) / BM + CL - 1) / CL * col_tiles),
+        nx((X + BK - 1) / BK),
+        n(nx + (H + BK - 1) / BK),
+        rank(hopper::cluster_ctarank()) {}
+  __device__ int first() const { return blockIdx.x / CL; }
+  __device__ int step() const { return gridDim.x / CL; }
+  __device__ int j0(int u) const { return u % col_tiles * BNH; }
+  __device__ int row0(int u) const {
+    return (u / col_tiles * CL + rank) * BM;
+  }
+};
+
+// Warp 0: TMA loads, one thread, into a ring of stages: per stage an f32
+// x or h tile and the four gates' W strips, of which each block of a
+// cluster loads 4 / CL and multicasts them to both.  A strip past H reads
+// the next gate's columns, whose outputs are discarded; past 4H, and for
+// rows past B, TMA fills zeros.
+__device__ __forceinline__ void load(const Maps& maps, const Tiles& tl,
+                                     unsigned char* stages, uint64_t* full,
+                                     uint64_t* empty, int H) {
+  uint32_t g = 0;  // stages loaded by this block so far
+  for (int u = tl.first(); u < tl.count; u += tl.step()) {
+    const int j0 = tl.j0(u), row0 = tl.row0(u);
+    for (int s = 0; s < tl.n; ++s, ++g) {
+      const bool on_x = s < tl.nx;
+      const int k0 = (on_x ? s : s - tl.nx) * BK;
+      const uint32_t slot = g % STAGES;
+      unsigned char* st = stages + slot * STAGE;
+      // every block of the cluster has read this slot
+      hopper::mbar_wait(&empty[slot], ((g / STAGES) & 1) ^ 1);
+      hopper::mbar_expect_tx(&full[slot], STAGE);
+      hopper::tma_load_2d(st, on_x ? &maps.x : &maps.h, &full[slot], k0,
+                          row0);
+      const CUtensorMap* wmap = on_x ? &maps.wx : &maps.wh;
+#pragma unroll
+      for (int i = 0; i < 4 / CL; ++i) {
+        const int q = tl.rank * (4 / CL) + i;  // the strip of gate q
+        unsigned char* dst = st + A_BYTES + q * STRIP_BYTES;
+        hopper::tma_load_2d_multicast(dst, wmap, &full[slot], q * H + j0, k0,
+                                      (1u << CL) - 1);
+      }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// Warpgroups 1 and 2: rows 64 wg .. 64 wg + 63 of each tile, all 4 x 64
+// columns, with A in registers.  Each stage s: issue two
+// wgmma.m64n256k16 on stage s; wait for stage s-1's products and free its
+// slot in every block of the cluster (its tiles came from them); while
+// stage s's products run, read this thread's A fragments of stage s+1
+// from its f32 tile and round them to bf16 in registers.  Then the
+// epilogue: column j of the four gates sits in this thread's registers.
+__device__ __forceinline__ void consume(const Tiles& tl,
+                                        const unsigned char* stages,
+                                        uint64_t* full, uint64_t* empty,
+                                        const float* __restrict__ c,
+                                        const float* __restrict__ b,
+                                        float* __restrict__ h_out,
+                                        float* __restrict__ c_out, int B,
+                                        int H) {
+  const int wg = (threadIdx.x >> 7) - 1, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + gr;  // this thread's first A row
+  const auto release = [&](uint32_t g) {
+    if (lane != 0) return;
+#pragma unroll
+    for (uint32_t cta = 0; cta < CL; ++cta)
+      hopper::mbar_arrive_cluster(&empty[g % STAGES], cta);
+  };
+  // stage g's A fragments: for each 16-deep half kk, rows r0 and r0 + 8
+  // (hi) by k = 16 kk + 2 t4 (+1) and + 8 (kh), from the f32 tile's
+  // 128-byte rows (16-byte chunk q of row r at chunk q ^ (r % 8)).
+  const auto fragments = [&](uint32_t g, uint32_t (&f)[8]) {
+    hopper::mbar_wait(&full[g % STAGES], (g / STAGES) & 1);
+    const unsigned char* a = stages + (g % STAGES) * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int r = r0 + 8 * hi, q = 4 * kk + 2 * kh + (t4 >> 1);
+          const float2 v = *reinterpret_cast<const float2*>(
+              a + r * 128 + ((q ^ (r & 7)) << 4) + ((t4 & 1) << 3));
+          f[4 * kk + 2 * kh + hi] = pack_bf16(v.x, v.y);
+        }
+  };
+  uint32_t g = 0;  // stages consumed by this block so far
+  for (int u = tl.first(); u < tl.count; u += tl.step()) {
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    uint32_t fa[8], fb[8];
+    const auto step = [&](const uint32_t (&cur)[8], uint32_t (&next)[8],
+                          int s) {
+      const unsigned char* w = stages + (g % STAGES) * STAGE + A_BYTES;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // B: 16 K rows of 128 bytes per gate strip, strips 4 KB apart
+        const uint64_t db = hopper::make_desc(
+            w + kk * 16 * 128, STRIP_BYTES, 1024, hopper::kSwizzle128B);
+        hopper::wgmma_m64n256_rs(acc, cur + 4 * kk, db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // stage s-1's products are done: free it
+      if (s > 0) release(g - 1);
+      if (s + 1 < tl.n) fragments(g + 1, next);
+      ++g;
+    };
+    fragments(g, fa);
+    for (int s = 0; s < tl.n; s += 2) {
+      step(fa, fb, s);
+      if (s + 1 < tl.n) step(fb, fa, s + 1);
+    }
+    hopper::wgmma_wait<0>();
+    release(g - 1);
+
+    // the epilogue: c's loads first, all at once
+    const int j0 = tl.j0(u), row0 = tl.row0(u);
+    float2 cv[2][BNH / 8];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+      for (int jq = 0; jq < BNH / 8; ++jq) {
+        const int row = row0 + r0 + hi * 8, j = j0 + 8 * jq + 2 * t4;
+        cv[hi][jq] = row < B && j < H
+                         ? __ldg(reinterpret_cast<const float2*>(
+                               c + (size_t)row * H + j))
+                         : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+    for (int jq = 0; jq < BNH / 8; ++jq) {
+      const int j = j0 + 8 * jq + 2 * t4;  // even; H is even
+      if (j >= H) continue;
+      float bias[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) bias[q][e] = __ldg(b + q * H + j + e);
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = row0 + r0 + hi * 8;
+        if (row >= B) continue;
+        float cn[2], hn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jq + 2 * hi + e;  // gate q at acc[32 q + i]
+          const float cp = e ? cv[hi][jq].y : cv[hi][jq].x;
+          cn[e] = cp * sigmoid(acc[i] + bias[0][e]) +
+                  sigmoid(acc[32 + i] + bias[1][e]) *
+                      tanh_(acc[96 + i] + bias[3][e]);
+          hn[e] = sigmoid(acc[64 + i] + bias[2][e]) * tanh_(cn[e]);
+        }
+        const size_t o = (size_t)row * H + j;
+        *reinterpret_cast<float2*>(c_out + o) = make_float2(cn[0], cn[1]);
+        *reinterpret_cast<float2*>(h_out + o) = make_float2(hn[0], hn[1]);
+      }
+    }
+  }
+}
+
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
     lstm_step_wgmma_kernel(const __grid_constant__ Maps maps,
                            const float* __restrict__ c,
                            const float* __restrict__ b,
                            float* __restrict__ h_out,
-                           float* __restrict__ c_out, int B, int X, int H,
-                           int col_tiles) {
+                           float* __restrict__ c_out, int B, int X, int H) {
   extern __shared__ unsigned char raw[];
-  unsigned char* ring = hopper::align1024(raw);
-  unsigned char* a16 = ring + STAGES * STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(a16 + A16_BUFS * A16_BYTES);
+  unsigned char* stages = hopper::align1024(raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
-
-  // column tile fastest: the blocks in flight share their x and h tiles
-  const int j0 = (blockIdx.x % col_tiles) * BNH;
-  const int row0 = (blockIdx.x / col_tiles) * BM;
-  const int nx = (X + BK - 1) / BK, n = nx + (H + BK - 1) / BK;
+  const Tiles tl(B, X, H);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], CONSUMERS);
+      hopper::mbar_init(&full[s], 1);  // the stage's bytes
+      // freed by each consumer warp of the cluster
+      hopper::mbar_init(&empty[s], CL * CONSUMERS / 32);
     }
     hopper::mbar_fence_init();
   }
-  __syncthreads();
+  hopper::cluster_sync();
 
-  if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread issues
-    if (threadIdx.x == CONSUMERS) {
-      for (int s = 0; s < n; ++s) {
-        const int slot = s % STAGES, round = s / STAGES;
-        hopper::mbar_wait(&empty[slot], (round & 1) ^ 1);
-        const bool on_x = s < nx;
-        const int k0 = (on_x ? s : s - nx) * BK;
-        unsigned char* st = ring + slot * STAGE;
-        hopper::mbar_expect_tx(&full[slot], STAGE);
-        hopper::tma_load_2d(st, on_x ? &maps.x : &maps.h, &full[slot], k0,
-                            row0);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)  // the strip of gate q
-          hopper::tma_load_2d(st + A_BYTES + q * STRIP_BYTES,
-                              on_x ? &maps.wx : &maps.wh, &full[slot],
-                              q * H + j0, k0);
-      }
-    }
-    return;
+  if (threadIdx.x < 128) {  // warpgroup 0: warp 0 loads, the rest idle
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) load(maps, tl, stages, full, empty, H);
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    consume(tl, stages, full, empty, c, b, h_out, c_out, B, H);
   }
-
-  // a consumer warpgroup: rows 64 wg .. 64 wg + 63, all 4 x 64 columns
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
-  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-
-  for (int s = 0; s < n; ++s) {
-    const int slot = s % STAGES;
-    hopper::mbar_wait(&full[slot], (s / STAGES) & 1);
-    const unsigned char* st = ring + slot * STAGE;
-    // the warpgroup rounds its 64 rows of the f32 tile to bf16, into a
-    // copy that its stage s+2 reuses: by then stage s's products are done
-    // (wgmma_wait<1> at the end of stage s+1)
-    unsigned char* a = a16 + (s % A16_BUFS) * A16_BYTES;
-#pragma unroll
-    for (int i = 0; i < BM * BK / 8 / CONSUMERS; ++i)
-      convert(st, a, wg * 256 + (threadIdx.x & 127) + i * 128);
-    hopper::fence_proxy_async();
-    hopper::named_barrier(1 + wg, 128);
-
-    const unsigned char* w = st + A_BYTES;
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // A: 64 rows of 64 bytes, K advanced by 16 bf16 = 32 bytes; B: 16 K
-      // rows of 128 bytes per gate strip, strips 4 KB apart
-      const uint64_t da = hopper::make_desc(a + wg * 64 * 64 + kk * 32, 16,
-                                            512, hopper::kSwizzle64B);
-      const uint64_t db = hopper::make_desc(
-          w + kk * 16 * 128, STRIP_BYTES, 1024, hopper::kSwizzle128B);
-      hopper::wgmma_m64n256_ss(acc, da, db);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();  // stage s-1's products are done: free it
-    if (s > 0) hopper::mbar_arrive(&empty[(s - 1) % STAGES]);
-  }
-  hopper::wgmma_wait<0>();
-
-  // epilogue: column j of the four gates sits in this thread's registers
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int row = row0 + wg * 64 + warp * 16 + gr + hi * 8;
-    if (row >= B) continue;
-#pragma unroll
-    for (int jq = 0; jq < BNH / 8; ++jq) {
-      const int j = j0 + 8 * jq + 2 * t;  // even; H is even
-      if (j >= H) continue;
-      float gate[4][2];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          gate[q][e] = acc[(8 * q + jq) * 4 + 2 * hi + e] +
-                       __ldg(b + q * H + j + e);
-      const size_t o = (size_t)row * H + j;
-      const float2 cv = *reinterpret_cast<const float2*>(c + o);
-      float2 cn, hn;
-      cn.x = cv.x * sigmoid(gate[0][0]) +
-             sigmoid(gate[1][0]) * tanhf(gate[3][0]);
-      cn.y = cv.y * sigmoid(gate[0][1]) +
-             sigmoid(gate[1][1]) * tanhf(gate[3][1]);
-      hn.x = sigmoid(gate[2][0]) * tanhf(cn.x);
-      hn.y = sigmoid(gate[2][1]) * tanhf(cn.y);
-      *reinterpret_cast<float2*>(c_out + o) = cn;
-      *reinterpret_cast<float2*>(h_out + o) = hn;
-    }
-  }
+  // the other block's multicasts into this one and its arrivals on this
+  // one's barriers are over
+  hopper::cluster_sync();
 }
 
 int launch(const float* x, const float* h, const float* c,
            const __nv_bfloat16* w, const float* b, float* h_out,
-           float* c_out, int B, int X, int H, cudaStream_t stream) {
+           float* c_out, int B, int X, int H, int grid, cudaStream_t stream) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(x) |
                         reinterpret_cast<uintptr_t>(h) |
                         reinterpret_cast<uintptr_t>(c) |
                         reinterpret_cast<uintptr_t>(w) |
                         reinterpret_cast<uintptr_t>(h_out) |
                         reinterpret_cast<uintptr_t>(c_out);
-  if (X % 4 != 0 || H % 4 != 0 || (any & 15u) != 0)
+  if (X % 4 != 0 || H % 4 != 0 || (any & 15u) != 0 || grid < 1 ||
+      grid % CL != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Maps maps;
   const uint64_t xdims[2] = {(uint64_t)X, (uint64_t)B};
@@ -569,15 +658,12 @@ int launch(const float* x, const float* h, const float* c,
                         w + (size_t)X * 4 * H, whdims, wstride, wbox,
                         CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       lstm_step_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int col_tiles = (H + BNH - 1) / BNH;
-  const long long grid = (long long)((B + BM - 1) / BM) * col_tiles;
-  lstm_step_wgmma_kernel<<<static_cast<unsigned>(grid), THREADS, SMEM,
-                           stream>>>(maps, c, b, h_out, c_out, B, X, H,
-                                     col_tiles);
+  lstm_step_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(maps, c, b, h_out,
+                                                          c_out, B, X, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,8 +705,8 @@ int launch(const float* x, const float* h, const float* c, const T* w,
 // alignment the route does not take).
 extern "C" int lrcn_lstm_step(const void* x, const void* h, const void* c,
                               const void* w, const void* b, void* h_out,
-                              void* c_out, int B, int X, int H, int route,
-                              void* stream) {
+                              void* c_out, int B, int X, int H, int grid,
+                              int route, void* stream) {
   const float* xf = static_cast<const float*>(x);
   const float* hf = static_cast<const float*>(h);
   const float* cf = static_cast<const float*>(c);
@@ -631,7 +717,7 @@ extern "C" int lrcn_lstm_step(const void* x, const void* h, const void* c,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route) {
     case kWgmma:
-      return wg::launch(xf, hf, cf, wh, bf, ho, co, B, X, H, s);
+      return wg::launch(xf, hf, cf, wh, bf, ho, co, B, X, H, grid, s);
     case kWmma:
       return launch(xf, hf, cf, wh, bf, ho, co, B, X, H, s);
     case kFma:

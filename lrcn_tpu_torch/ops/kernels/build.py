@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,8 +49,8 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes; every entry point returns cudaGetLastError()
 SIGNATURES = {
-    # x, h, c, w, b, h_out, c_out, B, X, H, route, stream
-    "lrcn_lstm_step": [_P] * 7 + [_I] * 4 + [_P],
+    # x, h, c, w, b, h_out, c_out, B, X, H, grid, route, stream
+    "lrcn_lstm_step": [_P] * 7 + [_I] * 5 + [_P],
     # logits, vals, idx, lse, R, V, k, route, stream
     "lrcn_topk_lse": [_P] * 4 + [_I] * 4 + [_P],
     # x, w, b, y, B, H, W, C, F, relu, route, stream
@@ -158,6 +159,13 @@ def on_device(device: torch.device):
         return
     with torch.cuda.device(device):
         yield torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device: the most blocks a
+    persistent kernel keeps in flight, one an SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(status: int, name: str) -> None:

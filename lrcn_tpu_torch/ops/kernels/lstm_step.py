@@ -13,7 +13,10 @@ A CUDA tensor takes one of three hand-written routes of the kernel,
 chosen by ``lstm_step_route`` from the shapes, dtype and alignment:
 ``"wgmma"`` (bf16 with X and H multiples of 4 and 16-byte aligned
 tensors: TMA loads, wgmma, the cell update in the epilogue; the decode
-step's shapes), ``"wmma"`` (other bf16 shapes) and ``"fma"`` (f32).
+step's shapes), ``"wmma"`` (other bf16 shapes) and ``"fma"`` (f32).  The
+wgmma route runs persistent blocks, at most one an SM, each walking over
+output tiles, in clusters of two that share W; ``wgmma_grid`` sizes the
+grid from the row count.
 
 The kernel is the ``torch.library`` op ``lrcn::lstm_step``: its CPU
 implementation is the plain version, its CUDA implementation
@@ -38,6 +41,10 @@ from lrcn_tpu_torch.ops.kernels import build, launches
 ROUTES = {"fma": 0, "wmma": 1, "wgmma": 2}
 # TMA needs 16-byte aligned bases and row strides: 4 f32 per 16 bytes
 _TMA_ALIGN, _TMA_F32_STEP = 16, 4
+# the wgmma route's output tile: rows, and hidden columns of each gate,
+# and the blocks of a cluster (csrc/lstm_step.cu: wg::BM, wg::BNH, wg::CL)
+WGMMA_TILE = (128, 64)
+WGMMA_CLUSTER = 2
 
 
 def lstm_step_reference(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
@@ -84,6 +91,20 @@ def lstm_step_route(w: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     return "wmma"
 
 
+def wgmma_grid(rows: int, h_dim: int, sms: int) -> int:
+    """Blocks of the wgmma route: at most one an SM, in clusters of two.
+
+    The tiles are ``WGMMA_TILE``'s rows by its hidden columns of all four
+    gates.  A cluster takes two row tiles of one column tile (a group) and
+    shares the column tile's W strips by multicast; a row tile past the
+    rows loads zeros and writes nothing.  Groups are numbered column tile
+    fastest, and cluster ``k`` of ``K`` takes groups ``k, k + K, k + 2K,
+    ...``, so the clusters in flight share their rows of x and h and
+    between them read all of W.  Below one group a cluster (768 rows at
+    H = 1000 make 48) each cluster takes one group."""
+    tile_rows, tile_cols = WGMMA_TILE
+    groups = -(-rows // (WGMMA_CLUSTER * tile_rows)) * -(-h_dim // tile_cols)
+    return WGMMA_CLUSTER * max(1, min(groups, sms // WGMMA_CLUSTER))
 
 
 def _lstm_step_cpu(w, b, h, c, x):
@@ -101,12 +122,14 @@ def lstm_step_cuda(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     route = lstm_step_route(w, h, c, x)
+    grid = (wgmma_grid(x.shape[0], h.shape[1], build.sm_count(device))
+            if route == "wgmma" else 0)
     lib = build.load()
     with build.on_device(device) as stream:
         status = lib.lrcn_lstm_step(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            x.shape[0], x.shape[1], h.shape[1], ROUTES[route], stream)
+            x.shape[0], x.shape[1], h.shape[1], grid, ROUTES[route], stream)
     build.check(status, f"lrcn_lstm_step ({route})")
     launches.count(fused_lstm_step, route)
     return h_out, c_out

@@ -30,6 +30,12 @@ VGG_CONVS = [(224, 3, 64), (224, 64, 64), (112, 64, 128), (112, 128, 128),
              (56, 128, 256), (56, 256, 256), (28, 256, 512), (28, 512, 512),
              (14, 512, 512)]
 DTYPES = [torch.bfloat16, torch.float32]
+H100_SMS = 132
+# the rows the wgmma route's grid is checked at: a lone part-filled tile
+# (3), one full tile and a row more (129), the decode batch (768), the
+# 16x256 decode (12,288) and a row more (an odd count of row tiles),
+# best-of-100 sampling (25,600)
+GRID_ROWS = [3, 129, 768, 12288, 12289, 25600]
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -155,6 +161,7 @@ def stubbed(monkeypatch):
 
     monkeypatch.setattr(build, "load", lambda: lib)
     monkeypatch.setattr(build, "on_device", on_device)
+    monkeypatch.setattr(build, "sm_count", lambda device: H100_SMS)
     for module, ref in ((conv_module, "conv3x3_relu_reference"),
                         (lstm_module, "lstm_step_reference"),
                         (topk_module, "topk_logsumexp_reference")):
@@ -201,6 +208,71 @@ def test_lstm_wrapper_launches_its_route(stubbed, monkeypatch, x_dim, dtype,
     assert fn.launches == 1
     assert fn.launches_by_route == {r: int(r == route)
                                     for r in lstm_module.ROUTES}
+
+
+@pytest.mark.parametrize("rows", GRID_ROWS)
+def test_lstm_wrapper_passes_the_wgmma_grid(stubbed, monkeypatch, rows):
+    fn = lstm_module.fused_lstm_step
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "launches_by_route",
+                        dict.fromkeys(lstm_module.ROUTES, 0))
+    h_dim = 1000
+    lstm_module.lstm_step_cuda(
+        _meta(2 * h_dim, 4 * h_dim, dtype=torch.bfloat16), _meta(4 * h_dim),
+        _meta(rows, h_dim), _meta(rows, h_dim), _meta(rows, h_dim))
+    (name, args), = stubbed.calls
+    assert name == "lrcn_lstm_step"
+    assert args[7:10] == (rows, h_dim, h_dim)
+    assert args[10] == lstm_module.wgmma_grid(rows, h_dim, H100_SMS)
+    assert args[-2] == lstm_module.ROUTES["wgmma"]
+    assert fn.launches_by_route["wgmma"] == fn.launches == 1
+
+
+def _walk(grid, rows, h_dim):
+    """The (row tile, column tile) each block computes, as
+    csrc/lstm_step.cu:wg::Tiles walks them: cluster k of K takes groups k,
+    k + K, ...; block `rank` of a cluster the rank-th row tile of a group."""
+    tile_rows, tile_cols = lstm_module.WGMMA_TILE
+    cluster = lstm_module.WGMMA_CLUSTER
+    col_tiles = -(-h_dim // tile_cols)
+    groups = -(-(-(-rows // tile_rows)) // cluster) * col_tiles
+    clusters = grid // cluster
+    return {blk: [(u // col_tiles * cluster + blk % cluster, u % col_tiles)
+                  for u in range(blk // cluster, groups, clusters)]
+            for blk in range(grid)}
+
+
+@pytest.mark.parametrize("rows", GRID_ROWS)
+@pytest.mark.parametrize("h_dim", [1000, 64, 8])
+def test_wgmma_grid_covers_every_tile_once(rows, h_dim):
+    """Every (row tile, column tile) once; a tile past the rows only as a
+    cluster's second row tile of the last row group; no block idle, whole
+    clusters, at most one block an SM."""
+    tile_rows, tile_cols = lstm_module.WGMMA_TILE
+    cluster = lstm_module.WGMMA_CLUSTER
+    grid = lstm_module.wgmma_grid(rows, h_dim, H100_SMS)
+    assert grid % cluster == 0
+    assert 1 <= grid <= H100_SMS
+    row_tiles, col_tiles = -(-rows // tile_rows), -(-h_dim // tile_cols)
+    walked = _walk(grid, rows, h_dim)
+    assert all(walked.values())
+    tiles = [t for blk in walked.values() for t in blk]
+    inside = sorted(t for t in tiles if t[0] < row_tiles)
+    assert inside == [(r, j) for r in range(row_tiles)
+                      for j in range(col_tiles)]
+    assert all(r == row_tiles and row_tiles % cluster
+               for r, _ in tiles if r >= row_tiles)
+    if len(tiles) >= H100_SMS:
+        assert grid == H100_SMS     # a persistent block on every SM
+
+
+def test_wgmma_tile_matches_the_c_source():
+    text = (build.CSRC_DIR / "lstm_step.cu").read_text()
+    body = text[text.index("namespace wg {"):]
+    const = {name: int(num) for name, num in
+             re.findall(r"constexpr int (BM|BNH|CL) = (\d+);", body)}
+    assert (const["BM"], const["BNH"]) == lstm_module.WGMMA_TILE
+    assert const["CL"] == lstm_module.WGMMA_CLUSTER
 
 
 def test_topk_wrapper_launches_the_kernel(stubbed, monkeypatch):
